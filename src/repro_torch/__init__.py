@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of the SpMV reproduction (Schubert/Hager/Fehske 2009).
+
+The JAX package ``repro`` is the reference; this package re-implements its
+main path -- Holstein-Hubbard matrix, storage formats, kernel registry, SpMV
+plan, Lanczos -- in PyTorch, with hand-written CUDA kernels for Hopper in
+``csrc/``.  It imports neither ``jax`` nor ``repro``.
+
+Entry points run on the card: a plan or a solve asked for no ``device``
+raises when CUDA is absent instead of falling back to the CPU.  Pass
+``device="cpu"`` to run the plain PyTorch kernels on the host.
+"""

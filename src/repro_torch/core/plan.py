@@ -1,0 +1,201 @@
+"""Compiled SpMV plans: preprocess once, execute many times.
+
+The paper's workloads never do one SpMV: Lanczos applies the same
+Hamiltonian on every iteration.  ``SpMVPlan.compile`` turns a format
+container into a reusable executor:
+
+1. the container is converted to the requested format and value dtype
+   (both cached on the source);
+2. every host-derived table (row ids, segment ids, gather indices,
+   descriptors) is built once and moved to the plan's device together with
+   the container's arrays -- once, at compile time;
+3. the registry picks the kernel: ``cuda`` when the plan runs on a CUDA
+   device, ``torch`` otherwise; an explicit backend whose entry is missing
+   or refuses the operand falls back to ``torch``, and ``report.kernel``
+   shows which ran;
+4. plans are memoized on the container, so ``compile`` is free after the
+   first call.
+
+PyTorch runs eagerly, so there is no ``jit`` step.  The report's balance
+and prediction fields come from the perfmodel slice (ROADMAP.md, queue 1,
+item 6) and are None here.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..kernels import registry as R
+from ..utils.hw import default_device
+from .formats import COO, CSR, DIA, SELL, HybridDIA, MatrixFreeOperator
+from .planconfig import PlanConfig
+
+_FMT_NAMES = {CSR: "csr", SELL: "sell", DIA: "dia", HybridDIA: "hybrid",
+              MatrixFreeOperator: "matrix_free"}
+
+
+@dataclass(frozen=True)
+class PlanReport:
+    """What the plan decided.  The model fields (``balance_bytes_per_flop``,
+    ``predicted_gflops``, ``predicted_time_s``, ``bound``) are None until
+    the perfmodel is ported."""
+
+    format: str
+    shape: tuple
+    nnz: int
+    kernel: str                     # SpMV: "cuda" | "torch" | "loop"
+    spmm_kernel: str                # SpMM: "cuda" | "torch" | "loop"
+    device: str
+    choice: object = None           # a kernel's launch geometry, if any
+    balance_bytes_per_flop: float | None = None
+    predicted_gflops: float | None = None
+    predicted_time_s: float | None = None
+    bound: str | None = None
+
+
+class SpMVPlan:
+    """A compiled SpMV executor: ``plan(x) -> y`` and ``plan.spmm(X) -> Y``."""
+
+    def __init__(self, matrix, report: PlanReport, apply_fn, apply_multi,
+                 device: torch.device):
+        self.matrix = matrix
+        self.report = report
+        self.apply = apply_fn
+        self.apply_multi = apply_multi
+        self.device = device
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.spmv(x)
+
+    def _operand(self, x, what: str) -> torch.Tensor:
+        if isinstance(x, np.ndarray):
+            return torch.as_tensor(x, device=self.device)
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{what} must be a tensor or numpy array, "
+                            f"got {type(x).__name__}")
+        if x.device != self.device:
+            raise ValueError(f"{what} is on {x.device}; this plan runs on "
+                             f"{self.device}")
+        return x
+
+    def spmv(self, x) -> torch.Tensor:
+        """y = A @ x for x of shape (N,) on the plan's device; raises
+        ValueError on a shape or device mismatch."""
+        x = self._operand(x, "x")
+        if tuple(x.shape) != (self.report.shape[1],):
+            raise ValueError(f"x has shape {tuple(x.shape)}, expected "
+                             f"({self.report.shape[1]},)")
+        return self.apply(x)
+
+    def spmm(self, X) -> torch.Tensor:
+        """Y = A @ X for X of shape (N, K)."""
+        X = self._operand(X, "X")
+        if X.dim() != 2 or X.shape[0] != self.report.shape[1]:
+            raise ValueError(f"X has shape {tuple(X.shape)}, expected "
+                             f"({self.report.shape[1]}, K)")
+        return self.apply_multi(X)
+
+    def __repr__(self) -> str:  # pragma: no cover - cosmetic
+        r = self.report
+        return (f"SpMVPlan({r.format}, {r.shape}, nnz={r.nnz}, "
+                f"kernel={r.kernel}, device={r.device})")
+
+    @staticmethod
+    def compile(matrix, config: PlanConfig | None = None) -> "SpMVPlan":
+        """Build (or fetch the memoized) plan for ``matrix`` under ``config``
+        (a :class:`PlanConfig`; None is the default record, which runs on
+        the card and raises when there is none)."""
+        cfg = PlanConfig() if config is None else config
+        if not isinstance(cfg, PlanConfig):
+            raise TypeError(f"config must be a PlanConfig, got {type(cfg).__name__}")
+        device = default_device(cfg.device)
+        backend = _resolve_backend(cfg.backend)
+        if cfg.format is not None:
+            matrix = resolve_format(matrix, cfg.format,
+                                    convert_kwargs=cfg.sell_kwargs())
+        if cfg.value_dtype is not None:
+            matrix = _convert_cached(matrix, _FMT_NAMES.get(type(matrix), "csr"),
+                                     {}, value_dtype=cfg.value_dtype)
+        fmt = _FMT_NAMES.get(type(matrix))
+        if fmt is None:
+            raise TypeError(f"no plan for {type(matrix).__name__}")
+        key = (fmt, backend, str(device))
+        cache = getattr(matrix, "_spmv_plans", None)
+        if cache is None:
+            cache = {}
+            object.__setattr__(matrix, "_spmv_plans", cache)
+        plan = cache.get(key)
+        if plan is None:
+            plan = cache[key] = _compile(matrix, fmt, backend, device)
+        return plan
+
+
+def resolve_format(matrix, format: str, *, convert_kwargs: dict | None = None):
+    """``matrix`` converted to ``format``: a CSR/COO source is converted
+    (and the result cached on it); a container already in ``format``
+    passes; any other container is refused."""
+    if format == "auto":
+        from .planconfig import AUTO_FORMAT_SLICE
+        raise ValueError(AUTO_FORMAT_SLICE)
+    fmt = "coo" if isinstance(matrix, COO) else _FMT_NAMES.get(type(matrix))
+    if fmt is None:
+        raise TypeError(f"no plan for {type(matrix).__name__}")
+    if format == fmt:
+        return matrix
+    if fmt not in ("csr", "coo"):
+        raise ValueError(f"cannot convert a {fmt} container to {format!r}; "
+                         "pass the CSR/COO source instead")
+    kw = dict(convert_kwargs or {}) if format in ("sell", "hybrid") else {}
+    return _convert_cached(matrix, format, kw)
+
+
+def _convert_cached(matrix, fmt: str, kw: dict, value_dtype: str | None = None):
+    from .formats import convert, with_value_dtype
+    cache = getattr(matrix, "_fmt_cache", None)
+    if cache is None:
+        cache = {}
+        object.__setattr__(matrix, "_fmt_cache", cache)
+    key = (fmt, value_dtype, tuple(sorted(kw.items())))
+    obj = cache.get(key)
+    if obj is None:
+        src = CSR.from_coo(matrix) if isinstance(matrix, COO) else matrix
+        if _FMT_NAMES.get(type(src)) == fmt:
+            obj = src
+        else:
+            obj = convert(src, fmt, **kw)
+        if value_dtype is not None:
+            obj = with_value_dtype(obj, value_dtype)
+        cache[key] = obj
+    return obj
+
+
+_BACKENDS = ("auto",) + R.BACKENDS
+
+
+def _resolve_backend(backend: str) -> str:
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {_BACKENDS}")
+    return backend
+
+
+def _pick_entry(matrix, fmt: str, op: str, backend: str,
+                ctx: R.KernelContext) -> str:
+    """``auto`` asks the registry; an explicit backend is honoured when its
+    entry exists and its probe accepts the operand, else ``torch``."""
+    if backend == "auto":
+        return R.select_backend(matrix, fmt, op, ctx)
+    if R.has(fmt, op, backend) and R.get(fmt, op, backend).probe(matrix, ctx).ok:
+        return backend
+    return "torch"
+
+
+def _compile(matrix, fmt: str, backend: str, device: torch.device) -> SpMVPlan:
+    ctx = R.KernelContext(device=device)
+    ck_v = R.build(matrix, fmt, "spmv", _pick_entry(matrix, fmt, "spmv", backend, ctx), ctx)
+    ck_m = R.build(matrix, fmt, "spmm", _pick_entry(matrix, fmt, "spmm", backend, ctx), ctx)
+    report = PlanReport(format=fmt, shape=tuple(matrix.shape), nnz=matrix.nnz,
+                        kernel=ck_v.label, spmm_kernel=ck_m.label,
+                        device=str(device), choice=ck_v.choice)
+    return SpMVPlan(matrix, report, ck_v.fn, ck_m.fn, device)

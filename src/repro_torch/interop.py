@@ -1,0 +1,62 @@
+"""Containers from plain arrays: the bridge the parity tests use.
+
+``from_reference_arrays(kind, arrays, meta)`` builds a port container from
+the numpy arrays of a container of the same kind and its scalar metadata,
+so both packages can be fed the identical matrix.  It reads arrays only and
+imports nothing of the reference package; bf16 and fp8 arrays (whose numpy
+dtypes come from an extension package) are taken over by their raw bits.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core import formats as F
+
+#: numpy dtype names without a numpy builtin -> the torch dtype of the bits
+_BITS_DTYPES = {"bfloat16": (np.int16, torch.bfloat16),
+                "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
+def as_tensor(a) -> torch.Tensor | None:
+    """A CPU tensor holding exactly the values of ``a`` (None passes)."""
+    if a is None or isinstance(a, torch.Tensor):
+        return a
+    a = np.ascontiguousarray(a)
+    if a.dtype.name in _BITS_DTYPES:
+        bits, dtype = _BITS_DTYPES[a.dtype.name]
+        return torch.from_numpy(a.view(bits).copy()).view(dtype)
+    return torch.from_numpy(a.copy())
+
+
+def from_reference_arrays(kind: str, arrays: dict, meta: dict):
+    """A port container of ``kind`` ("coo", "csr", "sell", "dia", "hybrid",
+    "matrix_free") from ``arrays`` (name -> array; for "hybrid" the dicts
+    ``arrays["dia"]`` / ``arrays["rest"]``) and ``meta`` (shape and the
+    container's scalar fields; for "hybrid" ``meta["dia"]`` /
+    ``meta["rest"]``)."""
+    a = {k: as_tensor(v) for k, v in arrays.items() if not isinstance(v, dict)}
+    shape = tuple(int(s) for s in meta["shape"])
+    if kind == "coo":
+        return F.COO(a["rows"], a["cols"], a["vals"], shape, a.get("scale"))
+    if kind == "csr":
+        return F.CSR(a["row_ptr"], a["col_idx"], a["val"], shape, a.get("scale"))
+    if kind == "sell":
+        return F.SELL(a["chunk_ptr"], a["chunk_width"], a["col_idx"], a["val"],
+                      a["perm"], shape, int(meta["C"]), int(meta["sigma"]),
+                      int(meta["nnz"]), a.get("scale"))
+    if kind == "dia":
+        return F.DIA(a["offsets"], a["data"], shape, a.get("scale"))
+    if kind == "hybrid":
+        return F.HybridDIA(
+            from_reference_arrays("dia", arrays["dia"], {"shape": shape, **meta.get("dia", {})}),
+            from_reference_arrays("sell", arrays["rest"], {"shape": shape, **meta["rest"]}),
+            shape)
+    if kind == "matrix_free":
+        return F.MatrixFreeOperator(
+            data=a.get("data"), shape=shape, offsets=tuple(meta["offsets"]),
+            periods=tuple(meta["periods"]), los=tuple(meta["los"]),
+            his=tuple(meta["his"]), gen_values=tuple(meta["gen_values"]),
+            nnz=int(meta["nnz"]), stored_nnz=int(meta["stored_nnz"]),
+            value_dtype=str(meta["value_dtype"]))
+    raise ValueError(f"unknown container kind {kind!r}")

@@ -1,0 +1,197 @@
+"""Build, load and count the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface and loaded with ``ctypes``.  The
+build runs at first use -- one ``nvcc`` per source, all started together --
+into ``build/kernels/`` at the repository root (git-ignored).  A library's
+file name carries a hash of its sources and flags, so an edited kernel is
+rebuilt and an unchanged one is loaded as it is.
+
+Every wrapper adds one to its entry of the launch counters where it
+launches its kernel, and nowhere else, so a run can show that its main path
+went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+#: each kernel's name is its C entry point, its source ``csrc/<name>.cu``
+#: and its own shared library
+KERNELS = ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              # separate multiply and add, as the plain PyTorch versions do
+              "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+
+#: value-storage dtype -> the code the C entry points dispatch on
+VALUE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
+               torch.float16: 3, torch.float8_e4m3fn: 4, torch.int8: 5}
+
+_LAUNCHES = {name: 0 for name in KERNELS}
+_LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[str, object] = {}
+_LOCK = threading.Lock()
+
+
+# ---------------------------------------------------------------------------
+# launch counters
+# ---------------------------------------------------------------------------
+
+
+def count_launch(name: str) -> None:
+    _LAUNCHES[name] += 1
+
+
+def launch_counts() -> dict:
+    """Copy of the per-kernel launch counters."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
+
+def nvcc_path() -> str:
+    """The ``nvcc`` to build with: on ``PATH``, else under ``$CUDA_HOME``
+    or ``/usr/local/cuda``.  Raises when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found on PATH, in $CUDA_HOME/bin or /usr/local/cuda/bin: "
+        "the CUDA kernels in repro_torch/csrc are built with nvcc at first use")
+
+
+def _sources(name: str) -> list[Path]:
+    return [CSRC / f"{name}.cu"]
+
+
+def library_path(name: str) -> Path:
+    """Where ``name``'s library lands: hashed over its sources, the shared
+    header and the flags."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for p in _sources(name) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def nvcc_command(nvcc: str, name: str, out: Path) -> list[str]:
+    return [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out),
+            *map(str, _sources(name))]
+
+
+def build_kernels(names=KERNELS) -> dict[str, Path]:
+    """Compile every library that is not built yet, all ``nvcc`` runs in
+    parallel; the compiler's ``-Xptxas -v`` report goes to ``<lib>.log``.
+    Raises ``RuntimeError`` with the compiler's output on a failed build."""
+    paths = {n: library_path(n) for n in names}
+    todo = [n for n in names if not paths[n].exists()]
+    if not todo:
+        return paths
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n in todo:
+        tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (tmp, subprocess.Popen(
+            nvcc_command(nvcc, n, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        paths[n].with_suffix(".log").write_text(out)
+        if proc.returncode != 0:
+            failed.append(f"--- {n} (nvcc exit {proc.returncode}) ---\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, paths[n])  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def build_log(name: str) -> str:
+    """The compiler's report (registers, spills) for ``name``'s library."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def kernel_function(name: str, argtypes: list):
+    """The C entry point ``name`` of its library, built and loaded on first
+    use (every kernel library is built then, in parallel)."""
+    fn = _FNS.get(name)
+    if fn is None:
+        with _LOCK:
+            if name not in _LIBS:
+                for n, p in build_kernels().items():
+                    _LIBS.setdefault(n, ctypes.CDLL(str(p)))
+            fn = getattr(_LIBS[name], name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _FNS[name] = fn
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# wrapper helpers
+# ---------------------------------------------------------------------------
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """Device pointer of a tensor (None -> NULL)."""
+    return None if t is None else t.data_ptr()
+
+
+def check_tensor(t: torch.Tensor, what: str, device: torch.device,
+                 dtypes=None, ndim: int | None = None) -> None:
+    """Raise unless ``t`` lies on ``device``, is contiguous and has one of
+    ``dtypes`` and ``ndim`` dimensions."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{what}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    if dtypes is not None and t.dtype not in dtypes:
+        raise TypeError(f"{what} has dtype {t.dtype}, expected one of {dtypes}")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{what} has {t.dim()} dimensions, expected {ndim}")
+
+
+def value_code(t: torch.Tensor, what: str) -> int:
+    try:
+        return VALUE_CODES[t.dtype]
+    except KeyError:
+        raise TypeError(f"{what}: value dtype {t.dtype} has no CUDA kernel "
+                        f"(supported: {list(VALUE_CODES)})") from None
+
+
+def raise_on_error(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc} "
+                           "(cudaGetLastError after the launch)")
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
