@@ -3,21 +3,37 @@
 
     python3 chip_smoke.py [--n 1201200] [--out chiprun_out/chip_smoke.json]
 
-Builds the four hand-written CUDA kernels of ``src/repro_torch/csrc`` and
-drives the port's main path at the paper's size:
+Builds the seven hand-written CUDA kernels of ``src/repro_torch/csrc`` and
+drives the port's paths at the paper's size:
 
 1. the card's name and power limit, and the kernel build time;
-2. every kernel at the main path's shapes against its plain PyTorch version
-   on the same inputs (f64 and f32 accumulation, every value dtype), with
-   CUDA-event times of the kernel, the plain version and the cuSPARSE
-   yardstick (``torch.sparse_csr_tensor @ x``), beside the bound;
+2. every SpMV kernel at the main path's shapes against its plain PyTorch
+   version on the same inputs (f64 and f32 accumulation, every value
+   dtype), with CUDA-event times of the kernel, the plain version and the
+   cuSPARSE yardstick (``torch.sparse_csr_tensor @ x``), beside the bound;
 3. the main path: the N = 1,201,200 Holstein-Hubbard surrogate split into
    DIA + SELL, compiled into a plan, and 64 Lanczos steps on the card --
    the DIA and SELL launch counters must rise once per SpMV, and the
    recurrence must match a Lanczos run through the plain ``torch`` entry;
 4. exact physics through the matrix-free kernel in f64 (E0 of the L = 4
    Holstein-Hubbard chain against dense ``eigvalsh``), and Lanczos through a
-   ``csr`` plan and the CSR kernel.
+   ``csr`` plan and the CSR kernel;
+5. the STREAM calibration: the triad kernel against its plain version and
+   ``torch.addcmul`` (f32, f64, 2^26 per array), then ``card_chip()`` --
+   the card's measured bandwidth, which must stay within 1.05x the data
+   sheet's 3.35 TB/s;
+6. the microbenchmarks: Table 1 (n = 2^22, k = 8) and the dense-vs-indirect
+   split through the triad and gather kernels (ns/element);
+7. the model: ``select_format`` on ``card_chip()`` and a
+   ``PlanConfig(format="auto")`` plan for four matrices and two held out of
+   the efficiency fit, every candidate format's plan timed, the achieved
+   efficiency per format; a plan priced for another chip must run the same
+   kernel;
+8. batched SpMV: ``plan.spmm(X)`` of the surrogate's SELL plan through the
+   SELL SpMM kernel at K = 1 .. 64, against its plain version, with the
+   cuSPARSE SpMM yardstick, the bound and ``select_batch_width``'s curve;
+   then the kernel against its plain version for every value dtype at
+   K = 16, with f64 and f32 X.
 
 It prints a ``kernels`` JSON line before the last line and ends with
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
@@ -27,6 +43,7 @@ prints no result and exits non-zero.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -134,11 +151,19 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=1_201_200,
                     help="surrogate rows (the paper's N = 1,201,200)")
     ap.add_argument("--lanczos-steps", type=int, default=64)
+    ap.add_argument("--triad-n", type=int, default=1 << 26,
+                    help="STREAM-triad elements per array")
+    ap.add_argument("--micro-n", type=int, default=1 << 22,
+                    help="accesses of the Table-1 and gather-split kernels")
+    ap.add_argument("--laplace", type=int, default=1100, help="laplacian_2d side")
+    ap.add_argument("--powerlaw-n", type=int, default=1 << 20,
+                    help="rows of the power-law matrix of phase 7")
     ap.add_argument("--out", default=str(REPO / "chiprun_out" / "chip_smoke.json"))
     args = ap.parse_args(argv)
 
@@ -155,11 +180,15 @@ def main(argv=None) -> int:
     try:
         from repro_torch.core import formats as F
         from repro_torch.core import matrices as M
+        from repro_torch.core import microbench as MB
+        from repro_torch.core import perfmodel as PM
         from repro_torch.core.eigensolver import lanczos
-        from repro_torch.core.plan import SpMVPlan
+        from repro_torch.core.plan import SpMVPlan, _convert_cached
         from repro_torch.core.planconfig import PlanConfig
         from repro_torch.kernels import cuda_build as CB
+        from repro_torch.kernels import registry as R
         from repro_torch.kernels import csr, csr_spmv, dia, dia_spmv, matrix_free
+        from repro_torch.kernels import gather_bench as GB
         from repro_torch.kernels import sell, sell_spmv
         from repro_torch.utils.hw import H100
     except ImportError as e:
@@ -184,8 +213,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     CB.build_kernels()
     out["build_s"] = time.perf_counter() - t0
-    log(f"[build] 4 kernel libraries in {out['build_s']:.1f} s (nvcc, sm_90a)")
-    for name in CB.KERNELS:
+    log(f"[build] {len(CB.SOURCES)} kernel libraries ({len(CB.KERNELS)} kernels) in "
+        f"{out['build_s']:.1f} s (nvcc, sm_90a)")
+    for name in CB.SOURCES:
         regs = [ln.strip() for ln in CB.build_log(name).splitlines()
                 if "registers" in ln or "spill" in ln and "0 bytes" not in ln]
         log(f"[ptxas] {name}: " + ("; ".join(regs[:2]) if regs else "(cached build)"))
@@ -195,7 +225,7 @@ def main(argv=None) -> int:
     m = M.holstein_hubbard_surrogate(args.n, seed=0)
     hyb = F.split_dia(m)
     sell128 = F.SELL.from_csr(m, C=128)
-    lap_csr = M.laplacian_2d(1100, 1100)
+    lap_csr = M.laplacian_2d(args.laplace, args.laplace)
     lap = F.MatrixFreeOperator.from_csr(lap_csr)
     exact_csr = M.holstein_hubbard_exact()
     exact = F.MatrixFreeOperator.from_csr(exact_csr)
@@ -334,13 +364,14 @@ def main(argv=None) -> int:
                     replaces="src/repro/kernels/matrix_free.py:262", max_abs_err=err,
                     ms=time_ms(torch, k), plain_ms=time_ms(torch, p), bound_ms=b,
                     bound_by=by, library_ms=time_ms(torch, lambda: lib @ xl),
-                    shape=f"laplacian_2d(1100, 1100), {op.n_generated} generated "
-                          "diagonals, f64")
+                    shape=f"laplacian_2d({args.laplace}, {args.laplace}), "
+                          f"{op.n_generated} generated diagonals, f64")
 
     xl64 = torch.from_numpy(rng.standard_normal(lap.shape[0])).to(dev)
-    mf_case(lap, xl64, "laplacian 1100^2 f64", timed=True, lib_csr=lap_csr)
+    mf_case(lap, xl64, f"laplacian {args.laplace}^2 f64", timed=True, lib_csr=lap_csr)
     for vd in ("f32", "bf16", "f16"):
-        mf_case(F.with_value_dtype(lap, vd), xl64.float(), f"laplacian 1100^2 {vd}, f32 x")
+        mf_case(F.with_value_dtype(lap, vd), xl64.float(),
+                f"laplacian {args.laplace}^2 {vd}, f32 x")
     xe = torch.from_numpy(rng.standard_normal(exact.shape[0])).to(dev)
     mf_case(exact, xe, "holstein exact L=4 f64")
     mf_case(F.with_value_dtype(exact, "f32"), xe.float(), "holstein exact L=4 f32, f32 x")
@@ -444,22 +475,271 @@ def main(argv=None) -> int:
     log(f"[csr] csr plan (kernel={plan_c.report.kernel}) -> Lanczos {res_c.n_spmv} "
         f"steps, {counts['csr_spmv']} launches; alphas vs hybrid path {dc:.1e}")
 
-    # --- 5. report -------------------------------------------------------------
+    # --- 5. STREAM calibration: kernel 8, then card_chip() --------------------
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tri = {}
+    for dt in (torch.float32, torch.float64):
+        a, b, c = (torch.randn(args.triad_n, generator=gen, device=dev, dtype=dt)
+                   for _ in range(3))
+        k = lambda: GB.stream_triad(a, b, c)  # noqa: E731
+        p = lambda: GB.stream_triad_plain(a, b, c)  # noqa: E731
+        lib = lambda: torch.addcmul(b, a, c)  # noqa: E731
+        name = str(dt).replace("torch.", "")
+        err = compare("stream_triad", f"n={args.triad_n} {name} vs plain", k(), p())
+        compare("stream_triad", f"n={args.triad_n} {name} vs torch.addcmul", k(), lib())
+        ms = time_ms(torch, k)
+        tri[name] = {"ms": ms, "plain_ms": time_ms(torch, p), "library_ms": time_ms(torch, lib),
+                     "max_abs_err": err, "bytes": 4 * args.triad_n * a.element_size()}
+        if dt == torch.float32:
+            bnd, by = bound_ms(H100, tri[name]["bytes"], 2 * args.triad_n, name)
+            record("stream_triad", route="cuda", source="src/repro_torch/csrc/gather_bench.cu",
+                   replaces="src/repro/kernels/gather_bench.py:37", max_abs_err=err, ms=ms,
+                   plain_ms=tri[name]["plain_ms"], bound_ms=bnd, bound_by=by,
+                   library_ms=tri[name]["library_ms"],
+                   shape=f"o = b + a*c, n = {args.triad_n} f32 (library: torch.addcmul)")
+        del a, b, c
+    CB.reset_launch_counts()
+    chip = MB.card_chip(dev, n=args.triad_n)
+    counts = CB.launch_counts()
+    check(counts["stream_triad"] > 0, "calibration: stream_triad was never launched")
+    record("stream_triad", launches=counts["stream_triad"])
+    bw64 = MB.stream_triad_bandwidth(args.triad_n, dtype=torch.float64, device=dev)
+    share, share64 = chip.hbm_bytes_per_s / H100.hbm_bytes_per_s, bw64 / H100.hbm_bytes_per_s
+    for dt, bw in (("f32", chip.hbm_bytes_per_s), ("f64", bw64)):
+        check(bw / H100.hbm_bytes_per_s <= 1.05,
+              f"calibration: {dt} triad at {bw / 1e12:.3f} TB/s exceeds 1.05 x the data "
+              "sheet's 3.35 TB/s: a timing or byte-count fault")
+    out["stream"] = {"n": args.triad_n, "bw_f32": chip.hbm_bytes_per_s, "bw_f64": bw64,
+                     "share_of_datasheet_f32": share, "share_of_datasheet_f64": share64,
+                     "launches": counts["stream_triad"], "per_dtype": tri}
+    log(f"[stream] triad n={args.triad_n}: {chip.hbm_bytes_per_s / 1e12:.4f} TB/s f32 "
+        f"({100 * share:.1f} % of 3.35), {bw64 / 1e12:.4f} TB/s f64 ({100 * share64:.1f} %); "
+        f"kernel {tri['float32']['ms']:.4f} ms vs torch.addcmul "
+        f"{tri['float32']['library_ms']:.4f} ms (f32); {counts['stream_triad']} launches "
+        "in card_chip()")
+
+    # --- 6. microbenchmarks: Table 1 and the gather split (kernel 9) ----------
+    nm = args.micro_n
+    table1 = MB.run_table1(n=nm, k=8, device=dev)
+    for r in table1:
+        log(f"[table1] {r.name:10s} {r.ns_per_element:8.4f} ns/elem {r.gbytes_per_s:9.1f} GB/s")
+    rng_m = np.random.default_rng(6)
+    ind = MB.ind_constant_stride(nm, 8, nm * 8)
+    ga = torch.from_numpy(rng_m.standard_normal(nm)).to(dev, torch.float32)
+    gx = torch.from_numpy(rng_m.standard_normal(nm * 8)).to(dev, torch.float32)
+    gi = torch.from_numpy(ind).to(dev)
+    k = lambda: GB.gather_scp(ga, gi, gx)  # noqa: E731
+    p = lambda: GB.gather_scp_plain(ga, gi, gx)  # noqa: E731
+    err = compare("gather_scp", f"IS k=8 n={nm} f32", k(), p())
+    check(torch.equal(k(), p()), "gather_scp: one product per element must be exact")
+    ga64, gx64 = ga.double(), gx.double()
+    compare("gather_scp", f"IS k=8 n={nm} f64", GB.gather_scp(ga64, gi, gx64),
+            GB.gather_scp_plain(ga64, gi, gx64))
+    # a, idx read and o written once each, and every touched element of x once
+    n_touch = int(np.unique(ind).size)
+    bnd, by = bound_ms(H100, 3 * nm * 4 + n_touch * 4, nm, "float32")
+    record("gather_scp", route="cuda", source="src/repro_torch/csrc/gather_bench.cu",
+           replaces="src/repro/kernels/gather_bench.py:59", max_abs_err=err,
+           ms=time_ms(torch, k), plain_ms=time_ms(torch, p), bound_ms=bnd, bound_by=by,
+           library_ms=None, shape=f"o = a * x[idx], constant stride 8, n = {nm} f32, "
+                                  f"x {nm * 8} f32")
+    CB.reset_launch_counts()
+    split = MB.run_gather_split(n=nm, strides=(1, 8), bernoulli_k=8, device=dev)
+    counts = CB.launch_counts()
+    check(counts["gather_scp"] > 0, "gather split: gather_scp was never launched")
+    record("gather_scp", launches=counts["gather_scp"])
+    out["micro"] = {"table1": [vars(r) for r in table1], "split": [vars(r) for r in split],
+                    "gather_launches": counts["gather_scp"]}
+    log("[split] ns/element: " + ", ".join(f"{r.name} {r.ns_per_element:.4f}" for r in split)
+        + f"; {counts['gather_scp']} gather_scp launches")
+
+    # --- 7. the model: select_format / format="auto" on card_chip() -----------
+    kernel_formats = {f for f in F.FORMATS if R.has(f, "spmv", "cuda")}
+    pl = M.power_law_rows(args.powerlaw_n, args.powerlaw_n, mean_nnz=10.0, seed=3,
+                          max_nnz=192)
+    model_mats = {"surrogate": m, f"laplacian_2d({args.laplace})": lap_csr,
+                  f"power_law_rows({args.powerlaw_n})": pl, "holstein_exact L=4": exact_csr}
+    # held out: the committed h100 table was fitted on the four matrices
+    # above, so these two score it out of sample and never enter the fit
+    held_out = {
+        f"held-out power_law_rows({args.powerlaw_n}, mean 24, seed 11)": M.power_law_rows(
+            args.powerlaw_n, args.powerlaw_n, mean_nnz=24.0, seed=11, max_nnz=192),
+        f"held-out surrogate N={args.n // 2} seed 1": M.holstein_hubbard_surrogate(
+            args.n // 2, seed=1)}
+    model_mats.update(held_out)
+    other_chip = dataclasses.replace(chip, name="other_gpu")  # priced off the h100 family
+    model, fits = {}, {}
+    for mname, mat in model_mats.items():
+        t0 = time.perf_counter()
+        choice = PM.select_format(mat, chip=chip, device=dev)
+        plan_a = SpMVPlan.compile(mat, PlanConfig(format="auto", chip=chip))
+        rep = plan_a.report
+        check(rep.format == choice.format, f"{mname}: auto plan {rep.format} != pick "
+                                           f"{choice.format}")
+        check(rep.kernel == ("cuda" if rep.format in kernel_formats else "torch"),
+              f"{mname}: auto plan of {rep.format} runs {rep.kernel}")
+        check(None not in (rep.balance_bytes_per_flop, rep.predicted_gflops,
+                           rep.predicted_time_s, rep.bound), f"{mname}: empty report")
+        # a kernel that can run is taken whatever chip the plan prices
+        rep_o = SpMVPlan.compile(plan_a.matrix, PlanConfig(chip=other_chip)).report
+        check(rep_o.kernel == rep.kernel, f"{mname}: a plan priced for another chip "
+                                          f"runs {rep_o.kernel}, not {rep.kernel}")
+        xm = torch.from_numpy(np.random.default_rng(7).standard_normal(mat.shape[1])).to(dev)
+        cand = {}
+        for fmt, bal in choice.balances.items():
+            obj = _convert_cached(mat, fmt, choice.candidate_kwargs[fmt])
+            pa = SpMVPlan.compile(obj, PlanConfig(chip=chip))
+            t_eff1 = PM.predict(fmt, bal, max(1, mat.nnz), chip=chip).time_s * 1e3
+            row = {"kernel": pa.report.kernel, "predicted_ms": choice.predicted_time_s[fmt] * 1e3,
+                   "model_eff1_ms": t_eff1, "measured_ms": time_ms(torch, lambda: pa(xm))}
+            row["efficiency"] = t_eff1 / row["measured_ms"]
+            row["model_error"] = row["predicted_ms"] / row["measured_ms"]
+            # a matrix of a few thousand rows measures launch latency, not
+            # the memory rate: only the full-size matrices enter the fit
+            if mat.nnz >= 1_000_000 and mname not in held_out:
+                fits.setdefault(fmt, []).append(row["efficiency"])
+            if pa.report.kernel == "cuda":
+                pt = SpMVPlan.compile(obj, PlanConfig(chip=chip, backend="torch"))
+                row["torch_ms"] = time_ms(torch, lambda: pt(xm))
+                row["torch_efficiency"] = t_eff1 / row["torch_ms"]
+            cand[fmt] = row
+        fastest = min(cand, key=lambda f: cand[f]["measured_ms"])
+        model[mname] = {"pick": choice.format, "kernel": rep.kernel, "fastest": fastest,
+                        "pick_is_fastest": fastest == choice.format,
+                        "held_out": mname in held_out,
+                        "predicted_ms": rep.predicted_time_s * 1e3,
+                        "report_bound": rep.bound, "candidates": cand,
+                        "host_s": time.perf_counter() - t0}
+        log(f"[model] {mname}: pick {choice.format} ({rep.kernel}), predicted "
+            f"{choice.predicted_time_s[choice.format] * 1e3:.4f} ms; measured fastest "
+            f"{fastest} ({'pick' if fastest == choice.format else 'not the pick'})")
+        for fmt, r in cand.items():
+            log(f"[model]   {fmt:11s} {r['kernel']:5s} predicted {r['predicted_ms']:9.4f} "
+                f"measured {r['measured_ms']:9.4f} ms, efficiency {r['efficiency']:.3f}"
+                + (f"; torch {r['torch_ms']:.4f} ms, efficiency {r['torch_efficiency']:.3f}"
+                   if "torch_ms" in r else ""))
+    geo = lambda v: float(np.exp(np.mean(np.log(v))))  # noqa: E731
+    out["model"] = {"chip_bw": chip.hbm_bytes_per_s, "matrices": model,
+                    "fitted_h100": {f: geo(v) for f, v in fits.items()}}
+    scored = [model[k] for k in held_out]
+    log(f"[model] held out: pick = measured fastest on "
+        f"{sum(r['pick_is_fastest'] for r in scored)} of {len(scored)}; predicted / "
+        f"measured of the pick " + ", ".join(
+            f"{r['candidates'][r['pick']]['model_error']:.3f}" for r in scored))
+    # the flat composite SELL's overhead per byte over the padded composite's
+    s_sig = PM.select_sell_sigma(m.row_lengths(), 8)[0]
+    ss = _convert_cached(m, "sell", {"C": 8, "sigma": s_sig})
+    cp, cw, col, val, scale, perm = map(on, (ss.chunk_ptr, ss.chunk_width, ss.col_idx,
+                                             ss.val, ss.scale, ss.perm))
+    seg = on(sell.sell_segment_ids(ss))
+    col3, val3 = map(on, sell.sell_padded_views(ss))
+    inv = on(sell.inverse_perm(ss))
+    t_flat = time_ms(torch, lambda: sell_spmv.sell_spmv_plain(cp, cw, col, val, scale, perm,
+                                                               x64, ss.shape[0], 8, seg))
+    t_pad = time_ms(torch, lambda: sell.sell_spmv_padded(col3, val3, inv, x64, ss.shape[0],
+                                                         scale))
+    vb = ss.val.element_size()
+    ovh = (t_flat / (val.numel() * (vb + 8))) / (t_pad / (col3.numel() * (vb + 4)))
+    out["model"]["sell_flat_overhead_h100"] = ovh
+    del col3, val3
+    log(f"[model] fitted h100 efficiencies (geomean over the full-size matrices "
+        f"not held out): {json.dumps(out['model']['fitted_h100'])}; flat SELL "
+        f"composite {t_flat:.4f} ms vs padded {t_pad:.4f} ms -> overhead {ovh:.3f}")
+
+    # --- 8. batched SpMV through the SELL SpMM kernel ---------------------------
+    plan_s = SpMVPlan.compile(ss, PlanConfig(chip=chip))  # sigma from select_sell_sigma
+    check(plan_s.report.spmm_kernel == "cuda", f"sell plan SpMM runs {plan_s.report.spmm_kernel}")
+    sm = plan_s.matrix
+    cp, cw, col, val, scale, perm = map(on, (sm.chunk_ptr, sm.chunk_width, sm.col_idx,
+                                             sm.val, sm.scale, sm.perm))
+    seg = on(sell.sell_segment_ids(sm))
+    lib = csr_tensor(torch, *sell_triplets(F, sm), sm.shape, dev)
+    bw_choice = PM.select_batch_width(sm, chip=chip, backend="cuda")
+    widths = (1, 2, 4, 8, 16, 32, 64)
+    Xs = {K: torch.from_numpy(np.random.default_rng(K).standard_normal((args.n, K))).to(dev)
+          for K in widths}
+    CB.reset_launch_counts()
+    Ys = {}
+    for K in widths:
+        before = CB.launch_counts()["sell_spmm"]
+        Ys[K] = plan_s.spmm(Xs[K])
+        check(CB.launch_counts()["sell_spmm"] == before + 1,
+              f"batched SpMV: sell_spmm not launched once for K={K}")
+    counts = CB.launch_counts()
+    record("sell_spmm", launches=counts["sell_spmm"])
+    batch = {}
+    for K in widths:
+        errs = [compare("sell_spmm", f"surrogate sigma={s_sig} K={K} cols {j}:{j + 16}",
+                        Ys[K][:, j:j + 16], sell_spmv.sell_spmm_plain(
+                            cp, cw, col, val, scale, perm, Xs[K][:, j:j + 16].contiguous(),
+                            args.n, sm.C, seg)) for j in range(0, K, 16)]
+        X = Xs[K]
+        k = lambda: sell_spmv.sell_spmm_arrays(cp, cw, col, val, scale, perm, X,  # noqa: E731
+                                               args.n, sm.C)
+        t = time_ms(torch, k)
+        b_ms, b_by = bound_ms(H100, nbytes(cp, cw, col, val, scale, perm)
+                              + 2 * X.numel() * 8, 2 * sm.nnz * K, "float64")
+        row = {"ms": t, "library_ms": time_ms(torch, lambda: lib @ X), "bound_ms": b_ms,
+               "bound_by": b_by, "max_abs_err": max(errs),
+               "measured_qps": K / (t * 1e-3),
+               "predicted_qps": bw_choice.throughput.get(K)}
+        if K == 16:
+            row["plain_ms"] = time_ms(torch, lambda: sell_spmv.sell_spmm_plain(
+                cp, cw, col, val, scale, perm, X, args.n, sm.C, seg), reps=5)
+            record("sell_spmm", route="cuda", source="src/repro_torch/csrc/sell_spmm.cu",
+                   replaces="src/repro/kernels/sell_spmv.py:147", max_abs_err=row["max_abs_err"],
+                   ms=t, plain_ms=row["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                   library_ms=row["library_ms"],
+                   shape=f"surrogate SELL C=8 sigma={s_sig}, {sm.nnz} nnz, val f32, "
+                         "X (N, 16) f64")
+        batch[K] = row
+        log(f"[spmm] K={K:2d}: {t:.4f} ms ({row['measured_qps']:.0f} SpMV/s; model "
+            f"{row['predicted_qps']:.0f}), cuSPARSE {row['library_ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by}; max abs err {row['max_abs_err']:.2e}")
+    # every value dtype the kernel takes, at K = 16: f64 X (f64 accumulation)
+    # and f32 X (f32 accumulation, f64 for f64 values)
+    for vd in VALUE_DTYPES:
+        sv = F.with_value_dtype(sm, vd)
+        ops = list(map(on, (sv.chunk_ptr, sv.chunk_width, sv.col_idx, sv.val, sv.scale,
+                            sv.perm)))
+        for X in (Xs[16], Xs[16].float()):
+            compare("sell_spmm", f"surrogate {vd} values, X {str(X.dtype)[6:]} K=16",
+                    sell_spmv.sell_spmm_arrays(*ops, X, args.n, sv.C),
+                    sell_spmv.sell_spmm_plain(*ops, X, args.n, sv.C, seg))
+        del ops
+    del Ys, Xs
+    out["batched"] = {"sigma": s_sig, "launches": counts["sell_spmm"], "per_k": batch,
+                      "select_batch_width": bw_choice.width,
+                      "predicted_throughput": bw_choice.throughput}
+    log(f"[spmm] select_batch_width picks K={bw_choice.width} (saturation "
+        f"{bw_choice.saturation:.3f}); {counts['sell_spmm']} sell_spmm launches for "
+        f"{len(widths)} plan.spmm calls")
+
+    # --- report -----------------------------------------------------------------
+    names = ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv", "sell_spmm", "stream_triad",
+             "gather_scp")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: rows[n].get(k) for k in keys} for n in
-               ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv")]
+    kernels = [{k: rows[n].get(k) for k in keys} for n in names]
     for kr in kernels:
-        check(all(kr[k] is not None for k in keys), f"incomplete kernel row {kr}")
-    out["kernels"] = [rows[n] for n in ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv")]
+        check(all(kr[k] is not None for k in keys if k != "library_ms")
+              and (kr["library_ms"] is not None or kr["name"] == "gather_scp"),
+              f"incomplete kernel row {kr}")
+        check(kr["launches"] > 0, f"{kr['name']} was never launched on its path")
+    out["kernels"] = [rows[n] for n in names]
+    for kr in out["kernels"]:
+        kr["bound_ms_at_measured_bw"] = kr["bound_ms"] * H100.hbm_bytes_per_s / \
+            chip.hbm_bytes_per_s if kr["bound_by"] == "bytes" else kr["bound_ms"]
     out["checks"] = checks
     out["wall_s"] = time.perf_counter() - t_start
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(out, indent=1))
     for kr in out["kernels"]:
-        log(f"[kernel] {kr['name']:9s} {kr['ms']:.4f} ms (plain {kr['plain_ms']:.4f}, "
-            f"cuSPARSE {kr['library_ms']:.4f}, bound {kr['bound_ms']:.4f} by "
-            f"{kr['bound_by']}); {kr['launches']} launches on its path; {kr['shape']}")
+        lib_ms = "none" if kr["library_ms"] is None else f"{kr['library_ms']:.4f}"
+        log(f"[kernel] {kr['name']:12s} {kr['ms']:.4f} ms (plain {kr['plain_ms']:.4f}, "
+            f"library {lib_ms}, bound {kr['bound_ms']:.4f} by {kr['bound_by']}, "
+            f"{kr['bound_ms_at_measured_bw']:.4f} at the measured triad rate); "
+            f"{kr['launches']} launches on its path; {kr['shape']}")
     log(f"[done] {out['wall_s']:.1f} s; card: {smi}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
 """Sparse storage formats of the paper, as containers of PyTorch tensors.
 
-Port of ``repro.core.formats`` for the formats on the main path: COO, CSR
-(the paper's CRS), SELL-C-sigma (blocked JDS), DIA, the hybrid DIA + SELL
-split and the matrix-free generated operator.  ELL, JDS and BSR come in a
-later slice.
+Port of ``repro.core.formats``: COO, CSR (the paper's CRS), ELL, JDS (the
+paper's jagged diagonals), SELL-C-sigma (blocked JDS), DIA, the hybrid DIA +
+SELL split and the matrix-free generated operator, and ``matrix_stats``
+(the pattern statistics the performance model reads).  BSR comes with its
+block SpMM kernel in a later slice.
 
 Containers are frozen dataclasses whose array fields are CPU tensors; the
 packing itself is host preprocessing in numpy, exactly as in the paper, and
@@ -211,6 +212,11 @@ def _flat_group_ids(obj) -> tuple[np.ndarray, int]:
         return np.repeat(np.arange(obj.n_rows), obj.row_lengths()), obj.n_rows
     if isinstance(obj, COO):
         return _np(obj.rows).astype(np.int64), obj.shape[0]
+    if isinstance(obj, JDS):
+        # group = *permuted* row: jagged diagonal d holds rows 0..n_active-1
+        segs = [np.arange(L) for L in obj.diag_lengths()]
+        ids = np.concatenate(segs) if segs else np.zeros(0, np.int64)
+        return ids, obj.shape[0]
     if isinstance(obj, SELL):
         cp = _np(obj.chunk_ptr)
         return np.repeat(np.arange(obj.n_chunks), np.diff(cp)), obj.n_chunks
@@ -228,7 +234,7 @@ def dequantize(obj):
         return _replace_values(obj, vf, None)
     vn = _np(v).astype(np.float32)
     scale = _np(obj.scale)
-    if isinstance(obj, DIA):
+    if isinstance(obj, (ELL, DIA)):
         vf = vn * scale.reshape((vn.shape[0],) + (1,) * (vn.ndim - 1))
     else:
         ids, _ = _flat_group_ids(obj)
@@ -242,6 +248,10 @@ def _replace_values(obj, new_values, new_scale):
         return COO(obj.rows, obj.cols, new_values, obj.shape, new_scale)
     if isinstance(obj, CSR):
         return CSR(obj.row_ptr, obj.col_idx, new_values, obj.shape, new_scale)
+    if isinstance(obj, ELL):
+        return ELL(obj.col_idx, new_values, obj.shape, obj.nnz, new_scale)
+    if isinstance(obj, JDS):
+        return JDS(obj.jd_ptr, obj.col_idx, new_values, obj.perm, obj.shape, new_scale)
     if isinstance(obj, SELL):
         return SELL(obj.chunk_ptr, obj.chunk_width, obj.col_idx, new_values,
                     obj.perm, obj.shape, obj.C, obj.sigma, obj.nnz, new_scale)
@@ -270,7 +280,8 @@ def with_value_dtype(obj, value_dtype: str):
 
     f64/f32/bf16/f16 are plain casts (``scale`` stays None).  int8 and
     fp8_e4m3 store symmetrically quantized values plus an fp32 ``scale``
-    per group: row for CSR/COO, chunk for SELL, diagonal for DIA.
+    per group: row for CSR/COO/ELL, permuted row for JDS, chunk for SELL,
+    diagonal for DIA.
     """
     if value_dtype not in VALUE_DTYPES:
         raise ValueError(f"value_dtype={value_dtype!r}; expected one of "
@@ -292,7 +303,7 @@ def with_value_dtype(obj, value_dtype: str):
     if value_dtype not in _QMAX:
         return _replace_values(obj, _recast(v, value_dtype), None)
     vn = _np(v)
-    if isinstance(obj, DIA):
+    if isinstance(obj, (ELL, DIA)):
         q, scale = _quantize_axis0(vn, value_dtype)
     else:
         ids, n_groups = _flat_group_ids(obj)
@@ -384,6 +395,117 @@ class CSR:
 
     def to_dense(self) -> np.ndarray:
         return self.to_coo().to_dense()
+
+
+# ---------------------------------------------------------------------------
+# ELL and JDS
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ELL:
+    """ELLPACK: every row padded to the longest row's length; padding
+    entries have val = 0 and col = 0."""
+
+    col_idx: torch.Tensor  # (n_rows, width) int32
+    val: torch.Tensor      # (n_rows, width)
+    shape: tuple[int, int]
+    nnz: int
+    scale: torch.Tensor = None  # (n_rows,) fp32 per-row scale for int8/fp8
+
+    def __post_init__(self):
+        for f in ("col_idx", "val", "scale"):
+            object.__setattr__(self, f, _t(getattr(self, f)))
+
+    @property
+    def width(self) -> int:
+        return int(self.val.shape[1])
+
+    @staticmethod
+    def from_csr(m: CSR, width: int | None = None, pad_to: int = 1) -> "ELL":
+        _require_materialized(m, "ELL.from_csr")
+        _require_unquantized(m, "ELL.from_csr")
+        lens = m.row_lengths()
+        w = int(lens.max()) if lens.size else 0
+        if width is not None:
+            w = max(w, width)
+        w = max(1, -(-w // pad_to) * pad_to)
+        n = m.n_rows
+        rp, ci, v = _np(m.row_ptr), _np(m.col_idx), _np(m.val)
+        col = np.zeros((n, w), dtype=np.int32)
+        val = np.zeros((n, w), dtype=v.dtype)
+        rows = np.repeat(np.arange(n), lens)
+        offs = np.arange(len(ci)) - np.repeat(rp[:-1], lens)
+        col[rows, offs] = ci
+        val[rows, offs] = v
+        return ELL(col, _t(val, m.val.dtype), m.shape, m.nnz)
+
+    def to_dense(self) -> np.ndarray:
+        v = _np(self.val)
+        d = np.zeros(self.shape, dtype=v.dtype)
+        n, w = v.shape
+        np.add.at(d, (np.repeat(np.arange(n), w), _np(self.col_idx).ravel()), v.ravel())
+        return d
+
+
+@dataclass(frozen=True)
+class JDS:
+    """Jagged diagonals storage (paper Sec. 2): rows permuted by decreasing
+    length; the j-th entries of all rows form jagged diagonal j, stored
+    consecutively.  ``perm`` maps permuted -> original row."""
+
+    jd_ptr: torch.Tensor   # (n_diags+1,) int32
+    col_idx: torch.Tensor  # (nnz,) int32
+    val: torch.Tensor      # (nnz,)
+    perm: torch.Tensor     # (n_rows,) int32
+    shape: tuple[int, int]
+    scale: torch.Tensor = None  # (n_rows,) fp32 per-*permuted*-row scale
+
+    def __post_init__(self):
+        for f in ("jd_ptr", "col_idx", "val", "perm", "scale"):
+            object.__setattr__(self, f, _t(getattr(self, f)))
+
+    @property
+    def n_diags(self) -> int:
+        return int(self.jd_ptr.shape[0]) - 1
+
+    @property
+    def nnz(self) -> int:
+        return int(self.val.shape[0])
+
+    def diag_lengths(self) -> np.ndarray:
+        jp = _np(self.jd_ptr)
+        return jp[1:] - jp[:-1]
+
+    @staticmethod
+    def from_csr(m: CSR) -> "JDS":
+        _require_materialized(m, "JDS.from_csr")
+        _require_unquantized(m, "JDS.from_csr")
+        lens = m.row_lengths()
+        perm = np.argsort(-lens, kind="stable").astype(np.int32)
+        sorted_lens = lens[perm]
+        n_diags = int(sorted_lens.max()) if sorted_lens.size else 0
+        rp, ci, v = _np(m.row_ptr), _np(m.col_idx), _np(m.val)
+        cols_out, vals_out, jd_ptr = [], [], [0]
+        for d in range(n_diags):
+            # rows (in permuted order) long enough to reach diagonal d
+            n_active = int(np.searchsorted(-sorted_lens, -d, side="left"))
+            idx = rp[perm[:n_active]] + d
+            cols_out.append(ci[idx])
+            vals_out.append(v[idx])
+            jd_ptr.append(jd_ptr[-1] + n_active)
+        col_idx = np.concatenate(cols_out) if cols_out else np.zeros(0, np.int32)
+        val = np.concatenate(vals_out) if vals_out else np.zeros(0, v.dtype)
+        return JDS(np.asarray(jd_ptr, np.int32), col_idx.astype(np.int32),
+                   _t(val, m.val.dtype), perm, m.shape)
+
+    def to_dense(self) -> np.ndarray:
+        jp, ci, v, perm = map(_np, (self.jd_ptr, self.col_idx, self.val, self.perm))
+        d = np.zeros(self.shape, dtype=v.dtype)
+        for k in range(self.n_diags):
+            seg = slice(jp[k], jp[k + 1])
+            d[perm[: jp[k + 1] - jp[k]], ci[seg]] += v[seg]
+        return d
 
 
 # ---------------------------------------------------------------------------
@@ -735,6 +857,10 @@ def convert(m: CSR, fmt: str, value_dtype: str | None = None, **kw):
 def _convert(m: CSR, fmt: str, **kw):
     if fmt == "csr":
         return m
+    if fmt == "ell":
+        return ELL.from_csr(m, **kw)
+    if fmt == "jds":
+        return JDS.from_csr(m)
     if fmt == "sell":
         return SELL.from_csr(m, **kw)
     if fmt == "dia":
@@ -745,6 +871,47 @@ def _convert(m: CSR, fmt: str, **kw):
         if isinstance(m, MatrixFreeOperator):
             return m
         return MatrixFreeOperator.from_csr(m, **kw)
-    if fmt in ("ell", "jds", "bsr"):
+    if fmt == "bsr":
         raise ValueError(f"format {fmt!r} is not ported yet (see ROADMAP.md)")
     raise ValueError(f"unknown format {fmt!r}")
+
+
+#: the ``convert`` keys of the port's containers
+FORMATS = {"csr": CSR, "ell": ELL, "jds": JDS, "sell": SELL, "dia": DIA,
+           "hybrid": HybridDIA, "matrix_free": MatrixFreeOperator}
+
+
+def matrix_stats(m: CSR) -> dict:
+    """Compressed sparsity-pattern statistics, paper Fig. 5-style: the inputs
+    the performance model needs instead of the full pattern."""
+    lens = m.row_lengths()
+    ci = _np(m.col_idx)
+    rp = _np(m.row_ptr)
+    strides = np.diff(ci)
+    # remove the row-crossing strides (paper: backward jumps at row starts)
+    row_starts = rp[1:-1]
+    inner_mask = np.ones(len(strides), bool)
+    valid = (row_starts > 0) & (row_starts < m.nnz)
+    inner_mask[row_starts[valid] - 1] = False
+    inner = strides[inner_mask]
+    cross = strides[~inner_mask]
+    coo = m.to_coo()
+    offs = _np(coo.cols).astype(np.int64) - _np(coo.rows).astype(np.int64)
+    uq, cnt = np.unique(offs, return_counts=True)
+    order = np.argsort(-cnt)
+    return {
+        "n_rows": m.shape[0],
+        "n_cols": m.shape[1],
+        "nnz": m.nnz,
+        "nnz_per_row_mean": float(lens.mean()) if lens.size else 0.0,
+        "nnz_per_row_std": float(lens.std()) if lens.size else 0.0,
+        "nnz_per_row_max": int(lens.max()) if lens.size else 0,
+        "mean_inner_stride": float(np.abs(inner).mean()) if inner.size else 0.0,
+        "frac_backward_jumps": float((np.concatenate([inner, cross]) < 0).mean())
+        if m.nnz > 1 else 0.0,
+        "frac_stride_le_8": float((np.abs(inner) <= 8).mean()) if inner.size else 0.0,
+        "top_diag_offsets": uq[order[:16]].tolist(),
+        "top_diag_counts": cnt[order[:16]].tolist(),
+        "frac_nnz_top12_diags": float(cnt[order[:12]].sum() / max(1, m.nnz)),
+        "bandwidth": int(np.abs(offs).max()) if m.nnz else 0,
+    }

@@ -5,20 +5,24 @@ Hamiltonian on every iteration.  ``SpMVPlan.compile`` turns a format
 container into a reusable executor:
 
 1. the container is converted to the requested format and value dtype
-   (both cached on the source);
+   (both cached on the source); ``format="auto"`` asks
+   ``perfmodel.select_format`` for the format the model predicts fastest on
+   the plan's chip, with the stream-byte regime of the plan's backend;
 2. every host-derived table (row ids, segment ids, gather indices,
    descriptors) is built once and moved to the plan's device together with
    the container's arrays -- once, at compile time;
-3. the registry picks the kernel: ``cuda`` when the plan runs on a CUDA
-   device, ``torch`` otherwise; an explicit backend whose entry is missing
+3. the registry picks the kernel: ``backend="auto"`` takes the ``cuda``
+   kernel whenever its probe accepts the operand (on a CUDA device) and
+   otherwise ranks the accepting entries by their cost hooks; an explicit
+   backend whose entry is missing
    or refuses the operand falls back to ``torch``, and ``report.kernel``
    shows which ran;
 4. plans are memoized on the container, so ``compile`` is free after the
    first call.
 
-PyTorch runs eagerly, so there is no ``jit`` step.  The report's balance
-and prediction fields come from the perfmodel slice (ROADMAP.md, queue 1,
-item 6) and are None here.
+``plan.report`` records what was decided and what the roofline predicts
+for it (balance, GFlop/s, seconds, the bound), with the byte regime of the
+kernel that runs.  PyTorch runs eagerly, so there is no ``jit`` step.
 """
 from __future__ import annotations
 
@@ -28,19 +32,18 @@ import numpy as np
 import torch
 
 from ..kernels import registry as R
-from ..utils.hw import default_device
-from .formats import COO, CSR, DIA, SELL, HybridDIA, MatrixFreeOperator
+from ..utils.hw import H100, ChipSpec, default_device
+from . import perfmodel as PM
+from .formats import COO, CSR, DIA, ELL, JDS, SELL, HybridDIA, MatrixFreeOperator
 from .planconfig import PlanConfig
 
-_FMT_NAMES = {CSR: "csr", SELL: "sell", DIA: "dia", HybridDIA: "hybrid",
-              MatrixFreeOperator: "matrix_free"}
+_FMT_NAMES = {CSR: "csr", ELL: "ell", JDS: "jds", SELL: "sell", DIA: "dia",
+              HybridDIA: "hybrid", MatrixFreeOperator: "matrix_free"}
 
 
 @dataclass(frozen=True)
 class PlanReport:
-    """What the plan decided.  The model fields (``balance_bytes_per_flop``,
-    ``predicted_gflops``, ``predicted_time_s``, ``bound``) are None until
-    the perfmodel is ported."""
+    """What the plan decided and what the model predicts for it."""
 
     format: str
     shape: tuple
@@ -48,11 +51,10 @@ class PlanReport:
     kernel: str                     # SpMV: "cuda" | "torch" | "loop"
     spmm_kernel: str                # SpMM: "cuda" | "torch" | "loop"
     device: str
-    choice: object = None           # a kernel's launch geometry, if any
     balance_bytes_per_flop: float | None = None
     predicted_gflops: float | None = None
     predicted_time_s: float | None = None
-    bound: str | None = None
+    bound: str | None = None        # "memory" | "compute"
 
 
 class SpMVPlan:
@@ -113,7 +115,9 @@ class SpMVPlan:
         device = default_device(cfg.device)
         backend = _resolve_backend(cfg.backend)
         if cfg.format is not None:
-            matrix = resolve_format(matrix, cfg.format,
+            matrix = resolve_format(matrix, cfg.format, chip=cfg.chip, am=cfg.am,
+                                    backend=backend, device=device,
+                                    sigma=1 if not cfg.permute else cfg.sigma,
                                     convert_kwargs=cfg.sell_kwargs())
         if cfg.value_dtype is not None:
             matrix = _convert_cached(matrix, _FMT_NAMES.get(type(matrix), "csr"),
@@ -121,27 +125,37 @@ class SpMVPlan:
         fmt = _FMT_NAMES.get(type(matrix))
         if fmt is None:
             raise TypeError(f"no plan for {type(matrix).__name__}")
-        key = (fmt, backend, str(device))
+        key = (fmt, backend, str(device), cfg.chip, cfg.am)
         cache = getattr(matrix, "_spmv_plans", None)
         if cache is None:
             cache = {}
             object.__setattr__(matrix, "_spmv_plans", cache)
         plan = cache.get(key)
         if plan is None:
-            plan = cache[key] = _compile(matrix, fmt, backend, device)
+            plan = cache[key] = _compile(matrix, fmt, backend, device, cfg.chip,
+                                         cfg.am)
         return plan
 
 
-def resolve_format(matrix, format: str, *, convert_kwargs: dict | None = None):
+def resolve_format(matrix, format: str, *, chip: ChipSpec | None = None,
+                   am=None, backend: str = "auto", device=None,
+                   convert_kwargs: dict | None = None, **select_kw):
     """``matrix`` converted to ``format``: a CSR/COO source is converted
     (and the result cached on it); a container already in ``format``
-    passes; any other container is refused."""
-    if format == "auto":
-        from .planconfig import AUTO_FORMAT_SLICE
-        raise ValueError(AUTO_FORMAT_SLICE)
+    passes; any other container is refused.  ``"auto"`` converts a CSR/COO
+    source to ``perfmodel.select_format``'s pick (with its own sigma) under
+    ``chip``, ``am`` and the stream regime of ``backend`` on ``device``;
+    any other container stands as the upstream choice."""
     fmt = "coo" if isinstance(matrix, COO) else _FMT_NAMES.get(type(matrix))
     if fmt is None:
         raise TypeError(f"no plan for {type(matrix).__name__}")
+    if format == "auto":
+        if fmt not in ("csr", "coo"):
+            return matrix
+        src = CSR.from_coo(matrix) if isinstance(matrix, COO) else matrix
+        choice = PM.select_format(src, am=am, chip=chip or H100,
+                                  backend=backend, device=device, **select_kw)
+        return _convert_cached(matrix, choice.format, choice.convert_kwargs)
     if format == fmt:
         return matrix
     if fmt not in ("csr", "coo"):
@@ -185,17 +199,41 @@ def _pick_entry(matrix, fmt: str, op: str, backend: str,
     """``auto`` asks the registry; an explicit backend is honoured when its
     entry exists and its probe accepts the operand, else ``torch``."""
     if backend == "auto":
-        return R.select_backend(matrix, fmt, op, ctx)
+        return R.select_backend(matrix, fmt, op, ctx)[0]
     if R.has(fmt, op, backend) and R.get(fmt, op, backend).probe(matrix, ctx).ok:
         return backend
     return "torch"
 
 
-def _compile(matrix, fmt: str, backend: str, device: torch.device) -> SpMVPlan:
-    ctx = R.KernelContext(device=device)
+#: report label -> the perfmodel stream-byte regime it executes
+_LABEL_STREAM = {"cuda": "cuda", "torch": "torch", "loop": "loop_reference"}
+
+
+def _compile(matrix, fmt: str, backend: str, device: torch.device,
+             chip: ChipSpec, am) -> SpMVPlan:
+    ctx = R.KernelContext(device=device, chip=chip, am=am)
     ck_v = R.build(matrix, fmt, "spmv", _pick_entry(matrix, fmt, "spmv", backend, ctx), ctx)
     ck_m = R.build(matrix, fmt, "spmm", _pick_entry(matrix, fmt, "spmm", backend, ctx), ctx)
+    am = am if am is not None else PM.access_model_for(matrix, chip)
+    balance = PM.balance_of(matrix, am, backend=_LABEL_STREAM[ck_v.label], chip=chip)
+    pred = PM.predict(fmt, balance, matrix.nnz, chip=chip)
     report = PlanReport(format=fmt, shape=tuple(matrix.shape), nnz=matrix.nnz,
                         kernel=ck_v.label, spmm_kernel=ck_m.label,
-                        device=str(device), choice=ck_v.choice)
+                        device=str(device),
+                        balance_bytes_per_flop=balance,
+                        predicted_gflops=pred.gflops,
+                        predicted_time_s=pred.time_s, bound=pred.bound)
     return SpMVPlan(matrix, report, ck_v.fn, ck_m.fn, device)
+
+
+def plan_all_formats(m: CSR, config: PlanConfig | None = None, *,
+                     formats=("csr", "ell", "jds", "sell", "hybrid"),
+                     **conv_kw) -> dict:
+    """Convert and plan a CSR matrix into each of ``formats`` under
+    ``config`` (its ``format`` is ignored).  Returns {name: SpMVPlan}; the
+    paper's "hint to the respective optimal storage scheme" is then
+    ``min`` over ``plan.report.predicted_time_s``.  ``conv_kw`` maps a
+    format to its conversion kwargs."""
+    cfg = (config or PlanConfig()).replace(format=None)
+    return {fmt: SpMVPlan.compile(_convert_cached(m, fmt, conv_kw.get(fmt, {})), cfg)
+            for fmt in formats}

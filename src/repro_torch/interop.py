@@ -30,8 +30,8 @@ def as_tensor(a) -> torch.Tensor | None:
 
 
 def from_reference_arrays(kind: str, arrays: dict, meta: dict):
-    """A port container of ``kind`` ("coo", "csr", "sell", "dia", "hybrid",
-    "matrix_free") from ``arrays`` (name -> array; for "hybrid" the dicts
+    """A port container of ``kind`` ("coo", "csr", "ell", "jds", "sell",
+    "dia", "hybrid", "matrix_free") from ``arrays`` (name -> array; for "hybrid" the dicts
     ``arrays["dia"]`` / ``arrays["rest"]``) and ``meta`` (shape and the
     container's scalar fields; for "hybrid" ``meta["dia"]`` /
     ``meta["rest"]``)."""
@@ -41,6 +41,11 @@ def from_reference_arrays(kind: str, arrays: dict, meta: dict):
         return F.COO(a["rows"], a["cols"], a["vals"], shape, a.get("scale"))
     if kind == "csr":
         return F.CSR(a["row_ptr"], a["col_idx"], a["val"], shape, a.get("scale"))
+    if kind == "ell":
+        return F.ELL(a["col_idx"], a["val"], shape, int(meta["nnz"]), a.get("scale"))
+    if kind == "jds":
+        return F.JDS(a["jd_ptr"], a["col_idx"], a["val"], a["perm"], shape,
+                     a.get("scale"))
     if kind == "sell":
         return F.SELL(a["chunk_ptr"], a["chunk_width"], a["col_idx"], a["val"],
                       a["perm"], shape, int(meta["C"]), int(meta["sigma"]),

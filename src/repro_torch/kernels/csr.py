@@ -101,5 +101,4 @@ def _build_spmv_cuda(m: CSR, ctx) -> CompiledKernel:
     rp, col, val, scale = on_device(ctx, m.row_ptr, m.col_idx, m.val, m.scale)
     lanes = KP.csr_lanes(m.n_rows, m.nnz)
     return CompiledKernel(
-        lambda x: KP.csr_spmv_arrays(rp, col, val, scale, x, lanes), "cuda",
-        {"lanes": lanes})
+        lambda x: KP.csr_spmv_arrays(rp, col, val, scale, x, lanes), "cuda")

@@ -1,11 +1,13 @@
 """Build, load and count the hand-written CUDA kernels of ``csrc/``.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface and loaded with ``ctypes``.  The
-build runs at first use -- one ``nvcc`` per source, all started together --
-into ``build/kernels/`` at the repository root (git-ignored).  A library's
-file name carries a hash of its sources and flags, so an edited kernel is
-rebuilt and an unchanged one is loaded as it is.
+Each source ``csrc/<source>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
+its own shared library with a plain C interface and loaded with ``ctypes``;
+a source holds one kernel's C entry point, or several (``gather_bench.cu``
+holds ``stream_triad`` and ``gather_scp``).  The build runs at first use --
+one ``nvcc`` per source, all started together -- into ``build/kernels/`` at
+the repository root (git-ignored).  A library's file name carries a hash of
+its source and flags, so an edited kernel is rebuilt and an unchanged one is
+loaded as it is.
 
 Every wrapper adds one to its entry of the launch counters where it
 launches its kernel, and nowhere else, so a run can show that its main path
@@ -26,9 +28,14 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
-#: each kernel's name is its C entry point, its source ``csrc/<name>.cu``
-#: and its own shared library
-KERNELS = ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv")
+#: source (``csrc/<source>.cu``, one shared library each) -> the C entry
+#: points it defines; each entry point is a kernel with its own launch count
+SOURCES = {"sell_spmv": ("sell_spmv",), "dia_spmv": ("dia_spmv",),
+           "csr_spmv": ("csr_spmv",), "mf_spmv": ("mf_spmv",),
+           "sell_spmm": ("sell_spmm",),
+           "gather_bench": ("stream_triad", "gather_scp")}
+KERNELS = tuple(k for names in SOURCES.values() for k in names)
+SOURCE_OF = {k: src for src, names in SOURCES.items() for k in names}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               # separate multiply and add, as the plain PyTorch versions do
@@ -83,28 +90,31 @@ def nvcc_path() -> str:
         "the CUDA kernels in repro_torch/csrc are built with nvcc at first use")
 
 
-def _sources(name: str) -> list[Path]:
-    return [CSRC / f"{name}.cu"]
+def source_path(name: str) -> Path:
+    """The ``.cu`` file of a kernel (or of a source) name."""
+    return CSRC / f"{SOURCE_OF.get(name, name)}.cu"
 
 
 def library_path(name: str) -> Path:
-    """Where ``name``'s library lands: hashed over its sources, the shared
-    header and the flags."""
+    """Where the library of ``name`` (a kernel or its source) lands: hashed
+    over its source, the shared header and the flags."""
+    src = SOURCE_OF.get(name, name)
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for p in _sources(name) + sorted(CSRC.glob("*.cuh")):
+    for p in [source_path(src)] + sorted(CSRC.glob("*.cuh")):
         h.update(p.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"lib{src}-{h.hexdigest()[:12]}.so"
 
 
 def nvcc_command(nvcc: str, name: str, out: Path) -> list[str]:
     return [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out),
-            *map(str, _sources(name))]
+            str(source_path(name))]
 
 
-def build_kernels(names=KERNELS) -> dict[str, Path]:
-    """Compile every library that is not built yet, all ``nvcc`` runs in
-    parallel; the compiler's ``-Xptxas -v`` report goes to ``<lib>.log``.
-    Raises ``RuntimeError`` with the compiler's output on a failed build."""
+def build_kernels(names=tuple(SOURCES)) -> dict[str, Path]:
+    """Compile every library (one per source) that is not built yet, all
+    ``nvcc`` runs in parallel; the compiler's ``-Xptxas -v`` report goes to
+    ``<lib>.log``.  Raises ``RuntimeError`` with the compiler's output on a
+    failed build.  Returns {source: library path}."""
     paths = {n: library_path(n) for n in names}
     todo = [n for n in names if not paths[n].exists()]
     if not todo:
@@ -143,10 +153,11 @@ def kernel_function(name: str, argtypes: list):
     fn = _FNS.get(name)
     if fn is None:
         with _LOCK:
-            if name not in _LIBS:
+            src = SOURCE_OF[name]
+            if src not in _LIBS:
                 for n, p in build_kernels().items():
                     _LIBS.setdefault(n, ctypes.CDLL(str(p)))
-            fn = getattr(_LIBS[name], name)
+            fn = getattr(_LIBS[src], name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _FNS[name] = fn

@@ -2,7 +2,8 @@
 
 The ``cuda`` SpMV adds the DIA kernel's and the SELL kernel's outputs, as
 the reference's Pallas hybrid composes its DIA and SELL kernels.  There is
-no ``cuda`` SpMM (neither part has one yet): a plan falls back to ``torch``.
+no ``cuda`` SpMM, as the reference has no Pallas hybrid SpMM (the DIA part
+has no multi-vector kernel): the SpMM runs the ``torch`` composition.
 """
 from __future__ import annotations
 

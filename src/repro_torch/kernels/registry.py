@@ -8,11 +8,14 @@ Backends (:data:`BACKENDS`):
 * ``cuda`` -- the hand-written Hopper kernels of ``csrc/``.  Their probe
   refuses an operand that is not placed on a CUDA device.
 * ``loop_reference`` -- per-diagonal / per-chunk traversals: slow,
-  obviously correct, never picked automatically.
+  obviously correct, never picked automatically (``auto=False``).
 
-``backend="auto"`` picks ``cuda`` when the operand goes to a CUDA device and
-the probe accepts it, and ``torch`` otherwise.  Ranking by a cost model
-belongs to the perfmodel slice (ROADMAP.md, queue 1 item 6).
+Every entry carries a cost hook: predicted seconds for one call through
+``core.perfmodel.predict_exec``, with the entry's own stream-byte regime
+(flat vs padded SELL) and formulation efficiency.  ``backend="auto"``
+(:func:`select_backend`) probes every eligible entry, takes the ``cuda``
+kernel whenever its probe accepts, ranks the other survivors by cost and
+memoizes the pick on the container.
 """
 from __future__ import annotations
 
@@ -21,16 +24,29 @@ from typing import Callable
 
 import torch
 
+from ..utils.hw import H100, ChipSpec, default_device
+
 OPS = ("spmv", "spmm")
 BACKENDS = ("torch", "cuda", "loop_reference")
+
+#: ranking derate of the loop oracles: rankable (an explicit request
+#: compiles) but never the winner of an auto selection
+_BACKEND_DERATE = {"torch": 1.0, "cuda": 1.0, "loop_reference": 1e-3}
 
 
 @dataclass(frozen=True)
 class KernelContext:
-    """What a build or probe hook needs beyond the operand: the device the
-    plan places the operand on."""
+    """What a build, probe or cost hook needs beyond the operand: the device
+    the plan places it on (default: the card, a ``RuntimeError`` without
+    one), the chip the cost model prices and its access model (``None``:
+    derived from the stored value dtype)."""
 
-    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    device: torch.device = field(default_factory=lambda: default_device(None))
+    chip: ChipSpec = H100
+    am: object = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", default_device(self.device))
 
 
 @dataclass(frozen=True)
@@ -50,7 +66,6 @@ class CompiledKernel:
 
     fn: Callable
     label: str                    # "torch" | "cuda" | "loop"
-    choice: object | None = None  # a kernel's launch geometry, if it has one
 
 
 @dataclass(frozen=True)
@@ -60,6 +75,8 @@ class KernelEntry:
     backend: str
     build: Callable                   # build(matrix, ctx) -> CompiledKernel
     probe: Callable                   # probe(matrix, ctx) -> Capability
+    cost: Callable                    # cost(matrix, ctx) -> seconds
+    auto: bool = True                 # eligible for backend="auto"
     description: str = ""
 
     @property
@@ -81,7 +98,7 @@ def _ensure_populated() -> None:
     if _POPULATED:
         return
     _POPULATED = True
-    from . import csr, dia, hybrid, matrix_free, sell  # noqa: F401
+    from . import csr, dia, ell, hybrid, jds, matrix_free, sell  # noqa: F401
 
 
 def probe_cuda(matrix, ctx: KernelContext) -> Capability:
@@ -96,9 +113,26 @@ def _probe_ok(matrix, ctx) -> Capability:
     return CAP_OK
 
 
-def register_kernel(format: str, op: str, backend: str, *, description: str = ""):
+def default_cost(fmt: str, backend: str):
+    """Cost hook: the execution-aware roofline with the entry's stream-byte
+    regime (on the context's chip) and the format's efficiency."""
+
+    def cost(matrix, ctx: KernelContext) -> float:
+        from ..core import perfmodel as PM
+        am = ctx.am if ctx.am is not None else PM.access_model_for(matrix)
+        balance = PM.balance_of(matrix, am, backend=backend, chip=ctx.chip)
+        eff = PM.exec_efficiency(ctx.chip).get(fmt, 1.0) * _BACKEND_DERATE[backend]
+        return PM.predict_exec(fmt, balance, max(1, matrix.nnz), chip=ctx.chip,
+                               efficiency={fmt: eff}).time_s
+
+    return cost
+
+
+def register_kernel(format: str, op: str, backend: str, *, auto: bool | None = None,
+                    description: str = ""):
     """Decorator: the decorated function is the entry's build hook.  Every
-    entry takes every value dtype of ``core.formats.VALUE_DTYPES``."""
+    entry takes every value dtype of ``core.formats.VALUE_DTYPES``; loop
+    entries are never auto-selected."""
     if op not in OPS:
         raise ValueError(f"unknown op {op!r}; expected one of {OPS}")
     if backend not in BACKENDS:
@@ -106,7 +140,10 @@ def register_kernel(format: str, op: str, backend: str, *, description: str = ""
 
     def deco(build):
         probe = probe_cuda if backend == "cuda" else _probe_ok
-        entry = KernelEntry(format, op, backend, build, probe, description)
+        entry = KernelEntry(format, op, backend, build, probe,
+                            default_cost(format, backend),
+                            backend != "loop_reference" if auto is None else auto,
+                            description)
         if entry.key in _TABLE:
             raise ValueError(f"kernel {entry.key} already registered")
         _TABLE[entry.key] = entry
@@ -160,13 +197,26 @@ def build(matrix, format: str, op: str, backend: str,
 
 
 def select_backend(matrix, format: str, op: str,
-                   ctx: KernelContext | None = None) -> str:
-    """``backend="auto"``: ``cuda`` when its entry exists and its probe
-    accepts the operand, else ``torch``."""
+                   ctx: KernelContext | None = None) -> tuple[str, dict]:
+    """``backend="auto"``: probe every eligible entry and memoize the pick
+    on the container.  A ``cuda`` entry whose probe accepts is always the
+    pick -- a kernel that can run never gives way to the plain version,
+    whatever chip is priced; the cost hooks rank the rest.  Returns
+    ``(backend, {backend: predicted seconds})``;
+    :class:`BackendUnavailable` when nothing survives."""
     ctx = ctx or KernelContext()
-    if has(format, op, "cuda") and get(format, op, "cuda").probe(matrix, ctx).ok:
-        return "cuda"
-    if has(format, op, "torch") and get(format, op, "torch").probe(matrix, ctx).ok:
-        return "torch"
-    raise BackendUnavailable(f"no registered backend can run ({format}, {op}) "
-                             f"on {ctx.device}")
+    memo_key = (format, op, str(ctx.device), ctx.chip, ctx.am)
+    memo = getattr(matrix, "_backend_choices", None)
+    if memo is None:
+        memo = {}
+        object.__setattr__(matrix, "_backend_choices", memo)
+    if memo_key in memo:
+        return memo[memo_key]
+    costs = {e.backend: e.cost(matrix, ctx) for e in entries(format, op)
+             if e.auto and e.probe(matrix, ctx).ok}
+    if not costs:
+        raise BackendUnavailable(f"no registered backend can run ({format}, {op}) "
+                                 f"on {ctx.device}")
+    choice = ("cuda" if "cuda" in costs else min(costs, key=costs.get), costs)
+    memo[memo_key] = choice
+    return choice

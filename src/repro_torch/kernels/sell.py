@@ -1,12 +1,20 @@
-"""SELL-C-sigma registry entries: ``(sell, {spmv, spmm}, {torch,
-loop_reference})`` and the CUDA SpMV of ``sell_spmv.py``.  The multi-vector
-SELL kernel is still to port (ROADMAP.md, queue 2), so SpMM is ``torch``
-only."""
+"""SELL-C-sigma registry entries: ``(sell, {spmv, spmm}, {torch, cuda,
+loop_reference})``.
+
+The ``torch`` entries carry two formulations and pick one per container
+(``perfmodel.sell_xla_uses_flat``), so that the model's stream bytes
+describe the code that runs: the flat form (gather + ``index_add_`` over
+the chunk-local layout, ``sum_c w_c * C`` elements plus one segment id
+each) and the padded form (gather + sum over the globally padded
+``(nc, W_max, C)`` views, regular but blind to sigma-sorting).  The ``cuda``
+entries are the kernels of ``sell_spmv.py``, which stream the flat layout.
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..core import perfmodel as PM
 from ..core.formats import SELL, _np
 from . import sell_spmv as KP
 from .accum import acc_dtype
@@ -14,6 +22,10 @@ from .cache import cached, register_stat, spmm_by_columns
 from .registry import CompiledKernel, KernelContext, on_device, register_kernel
 
 register_stat("sell_segment_ids")
+register_stat("sell_padded_views")
+
+#: integer dtype of each value width, for moving values as raw bits
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
 def sell_segment_ids(m: SELL) -> torch.Tensor:
@@ -23,20 +35,66 @@ def sell_segment_ids(m: SELL) -> torch.Tensor:
                                               m.col_idx.shape[0]))
 
 
+def padded_views(m: SELL) -> tuple[torch.Tensor, torch.Tensor]:
+    """The globally padded (nc, W_max, C) column and value views of the
+    flat layout (zero padding), as the reference's ``SELL.padded_views``."""
+    cp, cw = _np(m.chunk_ptr), _np(m.chunk_width).astype(np.int64)
+    nc, C = m.n_chunks, m.C
+    wmax = max(1, int(cw.max()) if cw.size else 1)
+    chunk_of = np.repeat(np.arange(nc), cw * C)
+    pos = np.arange(int(cp[-1])) - cp[chunk_of]
+    dest = torch.from_numpy(chunk_of * wmax * C + pos)
+    col = torch.zeros(nc * wmax * C, dtype=torch.int32).index_copy_(0, dest, m.col_idx)
+    # values move as raw bits (index_copy_ takes no fp8), zero bits = 0.0
+    bits = _BITS[m.val.element_size()]
+    val = torch.zeros(nc * wmax * C, dtype=bits).index_copy_(
+        0, dest, m.val.view(bits)).view(m.val.dtype)
+    return col.reshape(nc, wmax, C), val.reshape(nc, wmax, C)
+
+
+def sell_padded_views(m: SELL):
+    """``padded_views`` built once per container."""
+    return cached(m, "_padded_views", "sell_padded_views", lambda: padded_views(m))
+
+
+def inverse_perm(m: SELL) -> torch.Tensor | None:
+    """``inv[orig_row]`` = tile position of the row, or None for the natural
+    order (the padded form then slices instead of gathering)."""
+    p, n = _np(m.perm), m.shape[0]
+    if (p[:n] == np.arange(n, dtype=p.dtype)).all():
+        return None
+    inv = np.empty(n, dtype=np.int64)
+    pos = np.nonzero(p < n)[0]
+    inv[p[pos]] = pos
+    return torch.from_numpy(inv)
+
+
+def sell_spmv_padded(col3, val3, inv, x, n_rows: int, scale=None):
+    """SpMV on the padded views: one (nc, W, C) gather, a sum over W, the
+    per-chunk scale and the inverse-permutation gather."""
+    acc = acc_dtype(val3.dtype, x.dtype)
+    g = x.index_select(0, col3.reshape(-1)).reshape(col3.shape).to(acc)
+    tiles = (val3.to(acc) * g).sum(1)
+    if scale is not None:
+        tiles = tiles * scale.to(acc)[:, None]
+    flat = tiles.reshape(-1)
+    return flat[:n_rows] if inv is None else flat[inv]
+
+
+def sell_spmm_padded(col3, val3, inv, X, n_rows: int, scale=None):
+    """Multi-vector ``sell_spmv_padded``: an (nc, W, C, K) gather and an
+    einsum over W."""
+    acc = acc_dtype(val3.dtype, X.dtype)
+    g = X.index_select(0, col3.reshape(-1)).reshape(col3.shape + (X.shape[1],)).to(acc)
+    tiles = torch.einsum("nwc,nwck->nck", val3.to(acc), g)
+    if scale is not None:
+        tiles = tiles * scale.to(acc)[:, None, None]
+    flat = tiles.reshape(-1, X.shape[1])
+    return flat[:n_rows] if inv is None else flat[inv]
+
+
 def _operands(m: SELL, ctx):
     return on_device(ctx, m.chunk_ptr, m.chunk_width, m.col_idx, m.val, m.scale, m.perm)
-
-
-def sell_spmm_plain(chunk_width, col_idx, val, scale, perm, X, n_rows: int,
-                    C: int, seg):
-    acc = acc_dtype(val.dtype, X.dtype)
-    prod = val.to(acc)[:, None] * X.to(acc).index_select(0, col_idx)
-    tiles = torch.zeros((chunk_width.shape[0] * C, X.shape[1]), dtype=acc,
-                        device=X.device).index_add_(0, seg, prod)
-    if scale is not None:
-        tiles = tiles * scale.to(acc).repeat_interleave(C)[:, None]
-    return torch.empty((n_rows, X.shape[1]), dtype=acc, device=X.device
-                       ).index_copy_(0, perm[:n_rows].long(), tiles[:n_rows])
 
 
 def sell_spmv_loop(m: SELL, ctx: KernelContext):
@@ -63,24 +121,32 @@ def sell_spmv_loop(m: SELL, ctx: KernelContext):
     return fn
 
 
-@register_kernel("sell", "spmv", "torch",
-                 description="flat gather + index_add_ + inverse permutation")
-def _build_spmv(m: SELL, ctx) -> CompiledKernel:
-    cp, cw, col, val, scale, perm = _operands(m, ctx)
-    (seg,) = on_device(ctx, sell_segment_ids(m))
+def _build_torch(m: SELL, ctx, flat_fn, padded_fn) -> CompiledKernel:
+    """The ``torch`` executor: flat or padded, as the model prices it for
+    the context's chip."""
     n, C = m.shape[0], m.C
-    return CompiledKernel(lambda x: KP.sell_spmv_plain(
-        cp, cw, col, val, scale, perm, x, n, C, seg), "torch")
+    if PM.sell_xla_uses_flat(m, PM.chip_family(ctx.chip)):
+        cp, cw, col, val, scale, perm = _operands(m, ctx)
+        (seg,) = on_device(ctx, sell_segment_ids(m))
+        return CompiledKernel(lambda x: flat_fn(cp, cw, col, val, scale, perm, x,
+                                                n, C, seg), "torch")
+    col3, val3, inv, scale = on_device(ctx, *sell_padded_views(m), inverse_perm(m),
+                                       m.scale)
+    return CompiledKernel(lambda x: padded_fn(col3, val3, inv, x, n, scale), "torch")
+
+
+@register_kernel("sell", "spmv", "torch",
+                 description="flat gather + index_add_, or padded-view gather + "
+                             "sum (per-container pick) + inverse permutation")
+def _build_spmv(m: SELL, ctx) -> CompiledKernel:
+    return _build_torch(m, ctx, KP.sell_spmv_plain, sell_spmv_padded)
 
 
 @register_kernel("sell", "spmm", "torch",
-                 description="multi-vector flat gather + index_add_")
+                 description="multi-vector flat or padded-view form "
+                             "(per-container pick)")
 def _build_spmm(m: SELL, ctx) -> CompiledKernel:
-    _, cw, col, val, scale, perm = _operands(m, ctx)
-    (seg,) = on_device(ctx, sell_segment_ids(m))
-    n, C = m.shape[0], m.C
-    return CompiledKernel(lambda X: sell_spmm_plain(
-        cw, col, val, scale, perm, X, n, C, seg), "torch")
+    return _build_torch(m, ctx, KP.sell_spmm_plain, sell_spmm_padded)
 
 
 @register_kernel("sell", "spmv", "loop_reference",
@@ -109,12 +175,24 @@ def _check_indices(m: SELL) -> None:
         raise ValueError("SELL perm is not a permutation of the rows")
 
 
+def _build_cuda(m: SELL, ctx, kernel) -> CompiledKernel:
+    _check_indices(m)
+    cp, cw, col, val, scale, perm = _operands(m, ctx)
+    n, C = m.shape[0], m.C
+    return CompiledKernel(lambda x: kernel(cp, cw, col, val, scale, perm, x, n, C),
+                          "cuda")
+
+
 @register_kernel("sell", "spmv", "cuda",
                  description="thread per chunk row, own chunk width, fused "
                              "scale + inverse permutation")
 def _build_spmv_cuda(m: SELL, ctx) -> CompiledKernel:
-    _check_indices(m)
-    cp, cw, col, val, scale, perm = _operands(m, ctx)
-    n, C = m.shape[0], m.C
-    return CompiledKernel(lambda x: KP.sell_spmv_arrays(
-        cp, cw, col, val, scale, perm, x, n, C), "cuda")
+    return _build_cuda(m, ctx, KP.sell_spmv_arrays)
+
+
+@register_kernel("sell", "spmm", "cuda",
+                 description="lanes of a chunk row along K, one matrix pass, "
+                             "fused scale + inverse permutation")
+def _build_spmm_cuda(m: SELL, ctx) -> CompiledKernel:
+    # the launch's K lanes are chosen per call from X's width (sell_k_lanes)
+    return _build_cuda(m, ctx, KP.sell_spmm_arrays)

@@ -4,6 +4,9 @@
 them was measured by this repository: a roofline share computed from them is
 a share of the published peak, and a card whose power limit is below 700 W
 reaches less (``nvidia-smi --query-gpu=power.limit`` says which card ran).
+``ChipSpec.with_bandwidth`` returns the same card with a measured memory
+rate (``core.microbench.card_chip`` measures it with the STREAM-triad
+kernel), marked ``measured=True``.
 
 ``default_device`` replaces the reference's ``pallas_interpret_default``:
 the port runs on the card unless the caller asks for the CPU, and never
@@ -11,6 +14,7 @@ falls back to the CPU silently.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -22,7 +26,12 @@ class ChipSpec:
     peak_flops_fp32: float      # FLOP/s, outside the tensor cores
     peak_flops_fp64: float      # FLOP/s, outside the tensor cores
     hbm_bytes_per_s: float
-    measured: bool = False      # False: data-sheet values, not measured here
+    measured: bool = False      # False: data-sheet memory rate, not measured here
+
+    def with_bandwidth(self, bytes_per_s: float) -> "ChipSpec":
+        """The same chip with a measured memory rate (``measured=True``)."""
+        return dataclasses.replace(self, hbm_bytes_per_s=float(bytes_per_s),
+                                   measured=True)
 
 
 #: NVIDIA H100 SXM data sheet (dense rates, 700 W).  Unmeasured.

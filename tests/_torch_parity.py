@@ -94,6 +94,8 @@ def assert_same_array(ref, port, what: str = ""):
 _FIELDS = {
     "COO": ("rows", "cols", "vals", "scale"),
     "CSR": ("row_ptr", "col_idx", "val", "scale"),
+    "ELL": ("col_idx", "val", "scale"),
+    "JDS": ("jd_ptr", "col_idx", "val", "perm", "scale"),
     "SELL": ("chunk_ptr", "chunk_width", "col_idx", "val", "perm", "scale"),
     "DIA": ("offsets", "data", "scale"),
     "MatrixFreeOperator": ("data",),
@@ -111,8 +113,10 @@ def assert_same_container(ref, port):
         return
     for f in _FIELDS[kind]:
         assert_same_array(getattr(ref, f), getattr(port, f), f"{kind}.{f}")
+    if kind in ("SELL", "ELL"):
+        assert ref.nnz == port.nnz
     if kind == "SELL":
-        assert (ref.C, ref.sigma, ref.nnz) == (port.C, port.sigma, port.nnz)
+        assert (ref.C, ref.sigma) == (port.C, port.sigma)
     if kind == "MatrixFreeOperator":
         for f in ("offsets", "periods", "los", "his", "gen_values", "nnz",
                   "stored_nnz", "value_dtype"):
@@ -122,7 +126,8 @@ def assert_same_container(ref, port):
 def to_port(ref):
     """The port's container holding the reference container's arrays."""
     from repro_torch.interop import from_reference_arrays
-    kind = {"COO": "coo", "CSR": "csr", "SELL": "sell", "DIA": "dia",
+    kind = {"COO": "coo", "CSR": "csr", "ELL": "ell", "JDS": "jds",
+            "SELL": "sell", "DIA": "dia",
             "HybridDIA": "hybrid", "MatrixFreeOperator": "matrix_free"}[
                 type(ref).__name__]
     if kind == "hybrid":

@@ -46,7 +46,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda):
 
 @pytest.mark.parametrize("name", CB.KERNELS)
 def test_kernel_source_present_with_its_note(name):
-    src = (PORT / "csrc" / f"{name}.cu").read_text()
+    src = CB.source_path(name).read_text()
     head = src.split("#include")[0]
     assert "Replaces: repro/kernels/" in head
     assert "Bound:" in head and "Design:" in head

@@ -113,7 +113,7 @@ def test_interop_round_trip_is_the_port_pack():
 
 def test_convert_refuses_unported_formats():
     with pytest.raises(ValueError, match="not ported"):
-        PF.convert(port_matrix("exact3"), "ell")
+        PF.convert(port_matrix("exact3"), "bsr")
 
 
 def test_structural_conversions_refuse_quantized_sources():
@@ -123,3 +123,28 @@ def test_structural_conversions_refuse_quantized_sources():
     # convert() dequantizes and re-quantizes in the target's layout
     s = PF.convert(q, "sell")
     assert PF.container_value_dtype(s) == "int8" and s.scale is not None
+
+
+@pytest.mark.parametrize("name", ("surrogate600", "exact3", "powerlaw", "laplace24"))
+def test_ell_and_jds_packs_match(name):
+    r = ref_matrix(name)
+    assert_same_container(RF.ELL.from_csr(r), PF.ELL.from_csr(to_port(r)))
+    assert_same_container(RF.ELL.from_csr(r, width=70, pad_to=8),
+                          PF.ELL.from_csr(to_port(r), width=70, pad_to=8))
+    assert_same_container(RF.JDS.from_csr(r), PF.JDS.from_csr(to_port(r)))
+    assert np.array_equal(RF.JDS.from_csr(r).to_dense(), PF.JDS.from_csr(to_port(r)).to_dense())
+
+
+@pytest.mark.parametrize("vd", VALUE_DTYPES)
+@pytest.mark.parametrize("fmt", ("ell", "jds"))
+def test_ell_jds_value_dtypes_match(fmt, vd):
+    r, p = _containers("csr")
+    qr, qp = RF.with_value_dtype(RF.convert(r, fmt), vd), PF.with_value_dtype(PF.convert(p, fmt), vd)
+    assert_same_container(qr, qp)
+    assert PF.container_value_dtype(qp) == vd
+    assert_same_container(RF.dequantize(qr), PF.dequantize(qp))
+
+
+@pytest.mark.parametrize("name", MATRICES)
+def test_matrix_stats_match(name):
+    assert RF.matrix_stats(ref_matrix(name)) == PF.matrix_stats(to_port(ref_matrix(name)))

@@ -14,8 +14,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from _torch_parity import (  # noqa: E402
-    VALUE_DTYPE_TOL, operand, port_apply, ref_apply, ref_matrix, rel_err,
-    to_port, x64)
+    VALUE_DTYPE_TOL, VALUE_DTYPES, as_np, operand, port_apply, ref_apply, ref_matrix,
+    rel_err, to_port, x64)
 from repro.core import formats as RF  # noqa: E402
 from repro_torch.kernels import cuda_build as CB  # noqa: E402
 from repro_torch.kernels import registry as PR  # noqa: E402
@@ -110,14 +110,17 @@ def test_registry_table_covers_the_slice():
         for be in ("torch", "loop_reference"):
             assert (fmt, "spmm", be) in keys
     cuda_spmm = {k[0] for k in keys if k[1:] == ("spmm", "cuda")}
-    assert cuda_spmm == {"matrix_free"}  # SELL SpMM kernel: next slice
+    assert cuda_spmm == {"matrix_free", "sell"}  # hybrid SpMM stays torch
+    loops = [e for e in PR.entries() if e.backend == "loop_reference"]
+    assert loops and not any(e.auto for e in loops)
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_auto_backend_is_torch_on_cpu_and_cuda_refuses_with_reason(fmt):
     obj = to_port(ref_container(fmt, "f32"))
     ctx = PR.KernelContext(device=torch.device("cpu"))
-    assert PR.select_backend(obj, fmt, "spmv", ctx) == "torch"
+    backend, costs = PR.select_backend(obj, fmt, "spmv", ctx)
+    assert backend == "torch" and set(costs) == {"torch"}
     cap = PR.get(fmt, "spmv", "cuda").probe(obj, ctx)
     assert not cap.ok and "CUDA device" in cap.reason
 
@@ -156,12 +159,147 @@ def _wrapper_cases():
     yield ("mf_spmv",
            lambda: matrix_free.mf_spmv_arrays(data, desc, gen, xm, p0, op.shape[0]),
            lambda: matrix_free.mf_spmv_plain(data, desc, gen, xm, p0, op.shape[0]))
+    X = torch.from_numpy(operand(1200, 5, seed=9, dtype=np.float64))
+    yield ("sell_spmm",
+           lambda: sell_spmv.sell_spmm_arrays(s.chunk_ptr, s.chunk_width, s.col_idx,
+                                              s.val, s.scale, s.perm, X, 1200, s.C),
+           lambda: sell_spmv.sell_spmm_plain(s.chunk_ptr, s.chunk_width, s.col_idx,
+                                             s.val, s.scale, s.perm, X, 1200, s.C))
+    from repro_torch.kernels import gather_bench
+    ta, tb, tc = (torch.from_numpy(operand(1000, seed=i)) for i in (10, 11, 12))
+    yield ("stream_triad", lambda: gather_bench.stream_triad(ta, tb, tc),
+           lambda: gather_bench.stream_triad_plain(ta, tb, tc))
+    idx = torch.from_numpy(np.random.default_rng(13).integers(0, 1200, 1000).astype(np.int32))
+    yield ("gather_scp", lambda: gather_bench.gather_scp(ta, idx, x),
+           lambda: gather_bench.gather_scp_plain(ta, idx, x))
 
 
-@pytest.mark.parametrize("idx", range(4), ids=CB.KERNELS)
+@pytest.mark.parametrize("idx", range(len(CB.KERNELS)), ids=CB.KERNELS)
 def test_wrapper_on_cpu_tensor_runs_the_plain_version_and_counts_nothing(idx):
     name, wrapper, plain = list(_wrapper_cases())[idx]
+    assert name == CB.KERNELS[idx]
     before = CB.launch_counts()
     got = wrapper()
     assert CB.launch_counts() == before  # a launch is counted only on the card
     assert torch.equal(got, plain())
+
+
+# --- ELL and JDS: composite entries only (no TPU kernel, so no CUDA one) -------
+
+_EJ: dict = {}
+
+
+def ell_jds_container(fmt: str, vd: str = "f64"):
+    if fmt not in _EJ:
+        r = ref_matrix("surrogate600")
+        r = RF.CSR(r.row_ptr, r.col_idx, np.asarray(r.val, np.float64), r.shape)
+        _EJ[fmt] = RF.convert(r, fmt)
+    c = _EJ[fmt]
+    return c if vd == "f64" else RF.with_value_dtype(c, vd)
+
+
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+@pytest.mark.parametrize("op", ("spmv", "spmm"))
+@pytest.mark.parametrize("vd", ("f64", "f32"))
+@pytest.mark.parametrize("fmt", ("ell", "jds"))
+def test_ell_jds_entry_matches_reference_xla(fmt, vd, op, backend):
+    ref_c = ell_jds_container(fmt, vd)
+    dt = np.float64 if vd == "f64" else np.float32
+    x = operand(600, None if op == "spmv" else 3, seed=5, dtype=dt)
+    with x64(vd == "f64"):
+        want = ref_apply(ref_c, fmt, op, "xla", x)
+    got = port_apply(to_port(ref_c), fmt, op, backend, x)
+    assert got.dtype == dt
+    assert rel_err(got, want) <= (1e-12 if vd == "f64" else 1e-5)
+
+
+@pytest.mark.parametrize("vd", tuple(VALUE_DTYPE_TOL))
+@pytest.mark.parametrize("fmt", ("ell", "jds"))
+def test_ell_jds_narrow_dtypes_within_budget(fmt, vd):
+    ref_c = ell_jds_container(fmt, vd)
+    x = operand(600, seed=6)
+    with x64():
+        oracle = ref_apply(ell_jds_container(fmt), fmt, "spmv", "xla", x.astype(np.float64))
+    got = port_apply(to_port(ref_c), fmt, "spmv", "torch", x)
+    assert rel_err(got, oracle) < VALUE_DTYPE_TOL[vd]
+    assert rel_err(got, ref_apply(ref_c, fmt, "spmv", "xla", x)) <= 1e-5
+
+
+# --- SELL SpMM: the kernel's plain version against the Pallas kernel ----------
+
+
+def _ref_sell_spmm_pallas(ref_c, X):
+    """The reference's Pallas SpMM (interpreted) + its per-chunk scale +
+    its inverse-permutation scatter."""
+    import jax.numpy as jnp
+    from repro.kernels import sell as RS
+    from repro.kernels import sell_spmv as RK
+    col3, val3, _ = ref_c.padded_views()
+    tiles = RK.sell_spmm_arrays(jnp.asarray(col3), jnp.asarray(val3), jnp.asarray(X),
+                                chunk_block=8, interpret=True)
+    if ref_c.scale is not None:
+        tiles = tiles * jnp.asarray(ref_c.scale).astype(tiles.dtype)[:, None, None]
+    return np.asarray(RK.sell_spmm_scatter(tiles, RS._perm_arg(ref_c), ref_c.shape[0]))
+
+
+@pytest.mark.parametrize("vd", VALUE_DTYPES)
+def test_sell_spmm_plain_matches_reference_pallas_and_xla(vd):
+    from repro_torch.kernels import sell_spmv as KP
+    ref_c = ref_container("sell", vd)
+    dt = np.float64 if vd == "f64" else np.float32
+    X = operand(ref_c.shape[1], 4, seed=21, dtype=dt)
+    with x64(vd == "f64"):
+        want_pallas = _ref_sell_spmm_pallas(ref_c, X)
+        want_xla = ref_apply(ref_c, "sell", "spmm", "xla", X)
+    with x64():
+        oracle = ref_apply(ref_container("sell"), "sell", "spmm", "xla", X.astype(np.float64))
+    s = to_port(ref_c)
+    got = KP.sell_spmm_arrays(s.chunk_ptr, s.chunk_width, s.col_idx, s.val, s.scale,
+                              s.perm, torch.from_numpy(X), s.shape[0], s.C).numpy()
+    assert got.dtype == dt
+    tol = 1e-12 if vd == "f64" else 1e-5
+    assert rel_err(got, want_pallas) <= tol and rel_err(got, want_xla) <= tol
+    assert rel_err(got, oracle) < VALUE_DTYPE_TOL.get(vd, 1e-12)
+
+
+@pytest.mark.parametrize("op", ("spmv", "spmm"))
+@pytest.mark.parametrize("vd", ("f64", "f32", "bf16", "int8"))
+def test_sell_padded_form_matches_reference_padded_form(vd, op):
+    import jax.numpy as jnp
+    from repro.kernels import sell as RS
+    from repro_torch.kernels import sell as KS
+    ref_c = RF.with_value_dtype(RF.SELL.from_csr(
+        RF.CSR(*(np.asarray(a) for a in (ref_matrix("surrogate600").row_ptr,
+                                          ref_matrix("surrogate600").col_idx)),
+               np.asarray(ref_matrix("surrogate600").val, np.float64), (600, 600)),
+        C=8, sigma=64), vd)
+    s = to_port(ref_c)
+    col3, val3 = KS.padded_views(s)
+    rcol3, rval3, _ = ref_c.padded_views()
+    assert np.array_equal(col3.numpy(), rcol3)
+    assert np.array_equal(as_np(val3), as_np(rval3))
+    dt = np.float64 if vd == "f64" else np.float32
+    X = operand(600, None if op == "spmv" else 3, seed=8, dtype=dt)
+    scale = None if ref_c.scale is None else jnp.asarray(ref_c.scale)
+    fn_r = RS.sell_spmv_padded if op == "spmv" else RS.sell_spmm_padded
+    fn_p = KS.sell_spmv_padded if op == "spmv" else KS.sell_spmm_padded
+    with x64(vd == "f64"):
+        want = np.asarray(fn_r(jnp.asarray(rcol3), jnp.asarray(rval3), RS._perm_arg(ref_c),
+                               jnp.asarray(X), 600, scale))
+    got = fn_p(col3, val3, KS.inverse_perm(s), torch.from_numpy(X), 600, s.scale).numpy()
+    assert rel_err(got, want) <= (1e-12 if vd == "f64" else 1e-5)
+
+
+@pytest.mark.parametrize("sigma", (1, 64, 600))
+def test_sell_torch_entry_runs_the_form_the_model_picks(sigma):
+    from repro_torch.core import perfmodel as PM
+    from repro_torch.kernels import sell as KS
+    for name in ("surrogate600", "powerlaw"):
+        r = ref_matrix(name)
+        s = to_port(RF.SELL.from_csr(r, C=8, sigma=min(sigma, r.shape[0])))
+        # port_apply's context prices the default chip, the H100
+        flat = PM.sell_xla_uses_flat(s, PM.chip_family(PM.H100))
+        port_apply(s, "sell", "spmv", "torch", operand(r.shape[1]))
+        assert hasattr(s, "_segment_ids") == flat
+        assert hasattr(s, "_padded_views") == (not flat)
+        assert KS.inverse_perm(s) is None if sigma == 1 else True

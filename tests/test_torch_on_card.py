@@ -54,3 +54,55 @@ def test_cuda_matrix_free_matches_torch_on_the_card(cuda_device, vd):
     assert kern.report.kernel == "cuda" and kern.report.spmm_kernel == "cuda"
     assert torch.allclose(kern(X[:, 0]), plain(X[:, 0]), rtol=0, atol=1e-12)
     assert torch.allclose(kern.spmm(X), plain.spmm(X), rtol=0, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", (1, 3, 16, 40))
+@pytest.mark.parametrize("vd", ("f64", "f32", "bf16", "f16", "fp8_e4m3", "int8"))
+def test_cuda_sell_spmm_matches_torch_on_the_card(cuda_device, vd, K):
+    m = PF.with_value_dtype(PF.convert(port_matrix("surrogate3000"), "sell"), vd)
+    X = torch.from_numpy(np.random.default_rng(2).standard_normal((m.shape[1], K))).to(
+        cuda_device, torch.float64 if vd == "f64" else torch.float32)
+    kern = SpMVPlan.compile(m, PlanConfig(device=cuda_device))
+    plain = SpMVPlan.compile(m, PlanConfig(device=cuda_device, backend="torch"))
+    assert kern.report.spmm_kernel == "cuda"
+    before = CB.launch_counts()["sell_spmm"]
+    got, want = kern.spmm(X), plain.spmm(X)
+    torch.cuda.synchronize()
+    assert CB.launch_counts()["sell_spmm"] == before + 1
+    tol = 1e-12 if X.dtype == torch.float64 else 1e-5
+    assert float((got - want).abs().max() / want.abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (4096, 4097, 1 << 20))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_cuda_triad_and_gather_match_plain_on_the_card(cuda_device, dtype, n):
+    from repro_torch.kernels import gather_bench as GB
+    g = torch.Generator(device="cpu").manual_seed(0)
+    a, b, c = (torch.randn(n, generator=g, dtype=dtype).to(cuda_device) for _ in range(3))
+    before = CB.launch_counts()
+    assert torch.equal(GB.stream_triad(a, b, c), GB.stream_triad_plain(a, b, c))
+    # an unaligned view takes the scalar path and still agrees
+    assert torch.equal(GB.stream_triad(a[1:], b[1:], c[1:]),
+                       GB.stream_triad_plain(a[1:], b[1:], c[1:]))
+    idx = torch.randint(0, n, (n,), generator=g, dtype=torch.int32).to(cuda_device)
+    assert torch.equal(GB.gather_scp(a, idx, c), GB.gather_scp_plain(a, idx, c))
+    torch.cuda.synchronize()
+    after = CB.launch_counts()
+    assert after["stream_triad"] == before["stream_triad"] + 2
+    assert after["gather_scp"] == before["gather_scp"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chip", ("tpu_v5e", "host_cpu", "other_gpu"))
+@pytest.mark.parametrize("fmt", ("csr", "sell", "dia", "hybrid", "matrix_free"))
+def test_cuda_kernel_runs_whatever_chip_the_plan_prices(cuda_device, fmt, chip):
+    from repro_torch.utils.hw import ChipSpec
+    src = port_matrix("laplace48") if fmt in ("dia", "matrix_free") else \
+        port_matrix("surrogate3000")
+    m = PF.convert(src, fmt)
+    spec = ChipSpec(chip, 1e13, 5e12, 1e12)
+    plan = SpMVPlan.compile(m, PlanConfig(device=cuda_device, chip=spec))
+    assert plan.report.kernel == "cuda"
+    assert plan.report.spmm_kernel == ("cuda" if fmt in ("sell", "matrix_free") else "torch")

@@ -113,9 +113,15 @@ def test_report_fields_and_fallbacks():
     # an explicit backend whose probe refuses the operand falls back to torch
     assert plan.report.kernel == "torch" and plan.report.spmm_kernel == "torch"
     assert plan.report.device == "cpu"
-    assert plan.report.predicted_gflops is None and plan.report.bound is None
+    # the model's fields price the kernel that runs: torch streams its form
+    from repro_torch.core import perfmodel as PM
+    b = PM.balance_of(plan.matrix, backend="torch")
+    assert plan.report.balance_bytes_per_flop == b and plan.report.bound == "memory"
+    assert plan.report.predicted_time_s == PM.predict("sell", b, m.nnz).time_s
     loop = SpMVPlan.compile(m, CPU.replace(format="sell", backend="loop_reference"))
     assert loop.report.kernel == "loop"
+    assert loop.report.balance_bytes_per_flop == PM.balance_of(plan.matrix,
+                                                               backend="loop_reference")
 
 
 def test_plan_rejects_bad_operands():
@@ -132,8 +138,16 @@ def test_plan_rejects_bad_operands():
 
 
 def test_format_auto_names_the_perfmodel_slice():
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        PlanConfig(format="auto")
+    """``format="auto"`` converts to ``perfmodel.select_format``'s pick for
+    the plan's chip and backend, with the selector's own sigma."""
+    from repro_torch.core import perfmodel as PM
+    m = port_matrix("surrogate600")
+    plan = SpMVPlan.compile(m, CPU.replace(format="auto"))
+    choice = PM.select_format(m, device="cpu")
+    assert plan.report.format == choice.format
+    assert plan.report.predicted_time_s > 0 and plan.report.bound == "memory"
+    again = SpMVPlan.compile(m, CPU.replace(format="auto", backend="torch"))
+    assert again.matrix is plan.matrix  # one conversion, cached on the source
     with pytest.raises(ValueError, match="backend"):
         SpMVPlan.compile(to_port(ref_matrix("exact3")), CPU.replace(backend="xla"))
 
