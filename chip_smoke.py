@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py [--n 1201200] [--out chiprun_out/chip_smoke.json]
 
-Builds the seven hand-written CUDA kernels of ``src/repro_torch/csrc`` and
-drives the port's paths at the paper's size:
+Builds the nine hand-written CUDA kernels of ``src/repro_torch/csrc`` (eight
+sources, one ``nvcc`` each, in parallel) and drives the port's paths at the
+paper's size and, for the sparse-weight layer, at the widths of two models
+the repository configures:
 
 1. the card's name and power limit, and the kernel build time;
 2. every SpMV kernel at the main path's shapes against its plain PyTorch
@@ -33,7 +35,18 @@ drives the port's paths at the paper's size:
    SELL SpMM kernel at K = 1 .. 64, against its plain version, with the
    cuSPARSE SpMM yardstick, the bound and ``select_batch_width``'s curve;
    then the kernel against its plain version for every value dtype at
-   K = 16, with f64 and f32 X.
+   K = 16, with f64 and f32 X;
+9. sparse weights: (a) ``SparseLinear`` at Gemma-7B FFN width (the
+   (24576, 3072) gate weight pruned to 25 % in (8, 128) blocks, advised and
+   stored as BSR) at decode batches 1, 8 and 64 through the BELL kernel,
+   against dense ``x @ W.T``, every value dtype against the plain version,
+   with the dense cuBLAS and torch block-sparse yardsticks, and an
+   unstructured 10 % SELL layer through kernel 5; (b) ``ops.grouped_gemm``
+   at DeepSeek-V2-Lite expert width (64 experts, 2048 x 1408, a 2048-token
+   batch routed top-6) through the grouped GEMM kernel in f32 and bf16;
+   (c) ``PlanConfig(format="bsr")`` and ``format="auto"`` on an 8192^2
+   block-sparse matrix, every candidate timed (the fit of the ``h100`` bsr
+   efficiency), and a matrix held out of that fit.
 
 It prints a ``kernels`` JSON line before the last line and ends with
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
@@ -60,6 +73,12 @@ REPO = Path(__file__).resolve().parent
 TOL = {"float32": 1e-5, "float64": 1e-12}
 
 VALUE_DTYPES = ("f64", "f32", "bf16", "f16", "fp8_e4m3", "int8")
+
+#: budget of each narrow storage dtype against the f64 product of the same
+#: weights, relative to its max magnitude: rounding of the stored values,
+#: plus the per-group scale for int8 / fp8 (the reference's VALUE_DTYPE_TOL)
+VALUE_DTYPE_TOL = {"f32": 1e-5, "bf16": 3e-2, "f16": 1e-2, "fp8_e4m3": 2e-1,
+                   "int8": 5e-2}
 
 
 def log(msg: str) -> None:
@@ -164,6 +183,18 @@ def main(argv=None) -> int:
     ap.add_argument("--laplace", type=int, default=1100, help="laplacian_2d side")
     ap.add_argument("--powerlaw-n", type=int, default=1 << 20,
                     help="rows of the power-law matrix of phase 7")
+    ap.add_argument("--gemma-ff", type=int, default=24576,
+                    help="SparseLinear d_out (Gemma-7B d_ff)")
+    ap.add_argument("--gemma-model", type=int, default=3072,
+                    help="SparseLinear d_in (Gemma-7B d_model)")
+    ap.add_argument("--moe-experts", type=int, default=64,
+                    help="routed experts (DeepSeek-V2-Lite)")
+    ap.add_argument("--moe-d", type=int, default=2048, help="expert d_in (d_model)")
+    ap.add_argument("--moe-f", type=int, default=1408, help="expert d_out (moe d_ff)")
+    ap.add_argument("--moe-tokens", type=int, default=2048,
+                    help="tokens of the serving batch (x 6 routed rows each)")
+    ap.add_argument("--bsr-n", type=int, default=8192,
+                    help="side of the block-sparse matrix of the bsr plan path")
     ap.add_argument("--out", default=str(REPO / "chiprun_out" / "chip_smoke.json"))
     args = ap.parse_args(argv)
 
@@ -189,7 +220,16 @@ def main(argv=None) -> int:
         from repro_torch.kernels import registry as R
         from repro_torch.kernels import csr, csr_spmv, dia, dia_spmv, matrix_free
         from repro_torch.kernels import gather_bench as GB
+        from repro_torch.kernels import ops as KOPS
         from repro_torch.kernels import sell, sell_spmv
+        from repro_torch.interop import expert_weights
+        from repro_torch.kernels.bsr_spmm import (
+            bell_fill_ratio, bell_row_nblocks, bell_scale, bell_spmm_arrays,
+            bell_spmm_plain, bsr_to_bell)
+        from repro_torch.kernels.moe_gemm import (
+            grouped_gemm_arrays, grouped_gemm_plain, plan_groups)
+        from repro_torch.models.sparse import (
+            SparseLinear, advise_weight_format, magnitude_prune)
         from repro_torch.utils.hw import H100
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is not beside this script "
@@ -568,8 +608,11 @@ def main(argv=None) -> int:
             args.n // 2, seed=1)}
     model_mats.update(held_out)
     other_chip = dataclasses.replace(chip, name="other_gpu")  # priced off the h100 family
-    model, fits = {}, {}
-    for mname, mat in model_mats.items():
+
+    def score_matrix(mname, mat, held):
+        """select_format and a format="auto" plan on card_chip(), then every
+        candidate's plan timed: the pick, the measured fastest, per format
+        the predicted, model-at-efficiency-1 and measured ms."""
         t0 = time.perf_counter()
         choice = PM.select_format(mat, chip=chip, device=dev)
         plan_a = SpMVPlan.compile(mat, PlanConfig(format="auto", chip=chip))
@@ -594,22 +637,12 @@ def main(argv=None) -> int:
                    "model_eff1_ms": t_eff1, "measured_ms": time_ms(torch, lambda: pa(xm))}
             row["efficiency"] = t_eff1 / row["measured_ms"]
             row["model_error"] = row["predicted_ms"] / row["measured_ms"]
-            # a matrix of a few thousand rows measures launch latency, not
-            # the memory rate: only the full-size matrices enter the fit
-            if mat.nnz >= 1_000_000 and mname not in held_out:
-                fits.setdefault(fmt, []).append(row["efficiency"])
             if pa.report.kernel == "cuda":
                 pt = SpMVPlan.compile(obj, PlanConfig(chip=chip, backend="torch"))
                 row["torch_ms"] = time_ms(torch, lambda: pt(xm))
                 row["torch_efficiency"] = t_eff1 / row["torch_ms"]
             cand[fmt] = row
         fastest = min(cand, key=lambda f: cand[f]["measured_ms"])
-        model[mname] = {"pick": choice.format, "kernel": rep.kernel, "fastest": fastest,
-                        "pick_is_fastest": fastest == choice.format,
-                        "held_out": mname in held_out,
-                        "predicted_ms": rep.predicted_time_s * 1e3,
-                        "report_bound": rep.bound, "candidates": cand,
-                        "host_s": time.perf_counter() - t0}
         log(f"[model] {mname}: pick {choice.format} ({rep.kernel}), predicted "
             f"{choice.predicted_time_s[choice.format] * 1e3:.4f} ms; measured fastest "
             f"{fastest} ({'pick' if fastest == choice.format else 'not the pick'})")
@@ -618,6 +651,19 @@ def main(argv=None) -> int:
                 f"measured {r['measured_ms']:9.4f} ms, efficiency {r['efficiency']:.3f}"
                 + (f"; torch {r['torch_ms']:.4f} ms, efficiency {r['torch_efficiency']:.3f}"
                    if "torch_ms" in r else ""))
+        return {"pick": choice.format, "kernel": rep.kernel, "fastest": fastest,
+                "pick_is_fastest": fastest == choice.format, "held_out": held,
+                "predicted_ms": rep.predicted_time_s * 1e3, "report_bound": rep.bound,
+                "candidates": cand, "host_s": time.perf_counter() - t0}
+
+    model, fits = {}, {}
+    for mname, mat in model_mats.items():
+        model[mname] = score_matrix(mname, mat, mname in held_out)
+        # a matrix of a few thousand rows measures launch latency, not the
+        # memory rate: only the full-size matrices enter the fit
+        if mat.nnz >= 1_000_000 and mname not in held_out:
+            for fmt, r in model[mname]["candidates"].items():
+                fits.setdefault(fmt, []).append(r["efficiency"])
     geo = lambda v: float(np.exp(np.mean(np.log(v))))  # noqa: E731
     out["model"] = {"chip_bw": chip.hbm_bytes_per_s, "matrices": model,
                     "fitted_h100": {f: geo(v) for f, v in fits.items()}}
@@ -715,9 +761,254 @@ def main(argv=None) -> int:
         f"{bw_choice.saturation:.3f}); {counts['sell_spmm']} sell_spmm launches for "
         f"{len(widths)} plan.spmm calls")
 
+    # --- 9. sparse weights: SparseLinear (kernel 6), grouped GEMM (kernel 7) ----
+    # f32 products in full f32 on both sides (cuBLAS would otherwise be free
+    # to take TF32 if the process enabled it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def bytes_bound(nbytes_, flops_, peak_flops):
+        """(bound ms at 3.35 TB/s, bound ms at the measured triad rate, by)."""
+        t_ops = flops_ / peak_flops * 1e3
+        t_b, t_bm = nbytes_ / H100.hbm_bytes_per_s * 1e3, nbytes_ / chip.hbm_bytes_per_s * 1e3
+        return (max(t_b, t_ops), max(t_bm, t_ops), "bytes" if t_b >= t_ops else "operations")
+
+    # 9a. SparseLinear at Gemma-7B FFN width: the gate projection (d_ff, d_model)
+    t0 = time.perf_counter()
+    d_ff, d_model = args.gemma_ff, args.gemma_model
+    w0 = np.random.default_rng(9).standard_normal((d_ff, d_model), dtype=np.float32)
+    w = magnitude_prune(w0, 0.25, structured=(8, 128))
+    advised = advise_weight_format(w, (8, 128))
+    check(advised == "bsr", f"advisor picked {advised} for a (8, 128)-block-pruned weight")
+    lin = SparseLinear.from_dense(w, fmt="auto", device=dev)
+    check(lin.fmt == "bsr", f"SparseLinear.from_dense(fmt='auto') stored {lin.fmt}")
+    hb = F.BSR.from_dense(w, (8, 128))                 # the same arrays, on the host
+    nb = hb.n_blocks
+    fill = bell_fill_ratio(hb)
+    W_dev = torch.from_numpy(w).to(dev)
+    batches = (1, 8, 64)
+    xs = {B: torch.from_numpy(np.random.default_rng(100 + B).standard_normal(
+        (B, d_model), dtype=np.float32)).to(dev) for B in batches}
+    CB.reset_launch_counts()
+    ys = {}
+    for B in batches:
+        before = CB.launch_counts()["bell_spmm"]
+        ys[B] = lin(xs[B])
+        check(CB.launch_counts()["bell_spmm"] == before + 1,
+              f"SparseLinear B={B}: bell_spmm not launched once")
+    counts = CB.launch_counts()
+    record("bell_spmm", launches=counts["bell_spmm"])
+    for B in batches:
+        compare("bell_spmm", f"SparseLinear B={B} vs dense x @ W.T", ys[B], xs[B] @ W_dev.T)
+    host_9a = time.perf_counter() - t0
+    log(f"[sparse] gemma-7b gate W ({d_ff}, {d_model}) pruned to 25 % in (8, 128) blocks: "
+        f"advised {advised}; {nb} blocks, {nb * 8 * 128 * 4 / 1e6:.1f} MB f32; BELL fill "
+        f"ratio {fill:.3f}; bell_spmm launches {counts['bell_spmm']} for "
+        f"{len(batches)} layer calls; host {host_9a:.1f} s")
+    # the kernel against its plain version for every value dtype, B = 8, f32 x
+    M_ = d_ff
+    X8 = xs[8].T.contiguous()
+    dense64 = (xs[8].double() @ W_dev.double().T).T
+    sweep = {}
+    for vd in VALUE_DTYPES:
+        mv = F.with_value_dtype(hb, vd)
+        bc, sl = map(on, bsr_to_bell(mv))
+        sc, ln = on(bell_scale(mv)), on(bell_row_nblocks(mv))
+        got = bell_spmm_arrays(bc, sl, X8, sc, ln, M_)
+        err = compare("bell_spmm", f"gemma W {vd} blocks, B=8 f32 x", got,
+                      bell_spmm_plain(bc, sl, X8, sc, M_))
+        budget = TOL["float64"] if vd == "f64" else VALUE_DTYPE_TOL[vd]
+        _, rel64 = rel_err(torch, got, dense64)
+        check(rel64 <= budget, f"bell_spmm {vd}: {rel64:.3e} from the f64 dense product "
+                               f"(budget {budget:g})")
+        sweep[vd] = {"max_abs_err_vs_plain": err, "rel_err_vs_f64_dense": rel64}
+        log(f"[sparse]   {vd:8s} blocks: rel err vs f64 dense {rel64:.3e} (budget {budget:g})")
+        del bc, sl, sc, ln, mv
+    # times at each decode batch: kernel, plain, dense cuBLAS, library, bound
+    bc, sl = map(on, bsr_to_bell(hb))
+    ln = on(bell_row_nblocks(hb))
+    brp_d, bci_d, blk_d = on(hb.block_row_ptr), on(hb.block_col_idx), on(hb.blocks)
+    try:   # torch's block-sparse product, where this build runs it on the card
+        lib_t = torch.sparse_bsr_tensor(brp_d.long(), bci_d.long(), blk_d, size=(d_ff, d_model))
+        (lib_t @ X8).sum().item()
+        lib_kind = "torch.sparse_bsr_tensor @ X"
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"[sparse] torch.sparse_bsr_tensor @ X does not run on the card ({e}); the "
+            "library yardstick is torch.sparse_csr_tensor of the same matrix")
+        lib_t = W_dev.to_sparse_csr()
+        lib_kind = "torch.sparse_csr_tensor @ X"
+    per_b = {}
+    for B in batches:
+        X = xs[B].T.contiguous()
+        k = lambda: bell_spmm_arrays(bc, sl, X, None, ln, M_)  # noqa: E731
+        p = lambda: bell_spmm_plain(bc, sl, X, None, M_)  # noqa: E731
+        xb = xs[B]
+        err_b = compare("bell_spmm", f"gemma W f32 blocks, B={B} vs plain", k(), p())
+        nby = nb * 8 * 128 * 4 + nb * 4 + X.numel() * 4 + M_ * B * 4
+        b_ms, b_ms_m, b_by = bytes_bound(nby, 2 * nb * 8 * 128 * B, H100.peak_flops_fp32)
+        row = {"ms": time_ms(torch, k), "plain_ms": time_ms(torch, p, reps=5),
+               "dense_ms": time_ms(torch, lambda: xb @ W_dev.T),
+               "library_ms": time_ms(torch, lambda: lib_t @ X), "library": lib_kind,
+               "bound_ms": b_ms, "bound_ms_at_measured_bw": b_ms_m, "bound_by": b_by,
+               "bytes": nby}
+        per_b[B] = row
+        log(f"[sparse] B={B:2d}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
+            f"dense x @ W.T {row['dense_ms']:.4f}, {lib_kind} {row['library_ms']:.4f}, bound "
+            f"{b_ms:.4f} ({b_ms_m:.4f} at the triad rate) by {b_by}")
+        if B == 1:
+            record("bell_spmm", route="cuda", source="src/repro_torch/csrc/bell_spmm.cu",
+                   replaces="src/repro/kernels/bsr_spmm.py:65",
+                   max_abs_err=err_b, ms=row["ms"], plain_ms=row["plain_ms"],
+                   bound_ms=b_ms, bound_by=b_by, library_ms=row["library_ms"],
+                   shape=f"gemma-7b gate ({d_ff}, {d_model}), {nb} (8, 128) f32 blocks, "
+                         f"B = 1 f32 (library: {lib_kind})")
+    del lib_t, bc, sl, ln, brp_d, bci_d, blk_d
+    # the unstructured alternative: SELL through kernel 5
+    ws = magnitude_prune(w0, 0.1)
+    lin_s = SparseLinear.from_dense(ws, fmt="sell", device=dev)
+    Ws_dev = torch.from_numpy(ws).to(dev)
+    before = CB.launch_counts()["sell_spmm"]
+    ysl = lin_s(xs[8])
+    check(CB.launch_counts()["sell_spmm"] == before + 1, "SparseLinear(sell): sell_spmm "
+                                                         "not launched once")
+    compare("sell_spmm", "SparseLinear sell density 0.1, B=8 vs dense", ysl, xs[8] @ Ws_dev.T)
+    sell_ms = time_ms(torch, lambda: lin_s(xs[8]))
+    log(f"[sparse] unstructured density 0.1 as SELL ({lin_s.matrix.nnz} nnz): layer B=8 "
+        f"{sell_ms:.4f} ms through sell_spmm")
+    out["sparse_linear"] = {"shape": [d_ff, d_model], "advised": advised, "n_blocks": nb,
+                            "bell_fill_ratio": fill, "launches": counts["bell_spmm"],
+                            "per_batch": per_b, "value_dtypes": sweep,
+                            "sell_density_0.1_B8_ms": sell_ms, "host_s": host_9a}
+    del lin, lin_s, W_dev, Ws_dev, w0, w, ws, dense64
+
+    # 9b. ops.grouped_gemm at DeepSeek-V2-Lite expert width
+    E, Dm, Fe, topk, bt = args.moe_experts, args.moe_d, args.moe_f, 6, 128
+    rng_g = np.random.default_rng(12)
+    X_tok = rng_g.standard_normal((args.moe_tokens, Dm), dtype=np.float32)
+    T = args.moe_tokens * topk
+    eot = rng_g.integers(0, E, T)
+    Xd = torch.from_numpy(np.repeat(X_tok, topk, axis=0)).to(dev)
+    Wd = expert_weights(rng_g.standard_normal((E, Dm, Fe), dtype=np.float32), dev)
+    order, inv, te, T_pad = plan_groups(eot, E, bt)
+    counts_e = np.bincount(eot, minlength=E)
+    te_d, inv_d = on(torch.from_numpy(te)), on(torch.from_numpy(inv.astype(np.int64)))
+    sample = np.random.default_rng(13).choice(T, 256, replace=False)
+    moe, main_launches = {}, 0
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        Xg, Wg = Xd.to(dt), Wd.to(dt)
+        before = CB.launch_counts()["grouped_gemm"]
+        Y = KOPS.grouped_gemm(Xg, eot, Wg, bt=bt)
+        check(CB.launch_counts()["grouped_gemm"] == before + 1,
+              f"grouped_gemm {name}: kernel not launched once by ops.grouped_gemm")
+        main_launches += 1
+        launches_g = 1
+        Xp = torch.zeros((T_pad, Dm), dtype=dt, device=dev).index_copy_(0, inv_d, Xg)
+        k = lambda: grouped_gemm_arrays(te_d, Xp, Wg, bt=bt)  # noqa: E731
+        p = lambda: grouped_gemm_plain(te_d, Xp, Wg, bt)  # noqa: E731
+        if dt == torch.float32:
+            err = compare("grouped_gemm", f"E={E} D={Dm} F={Fe} T_pad={T_pad} f32", k(), p())
+        else:
+            err, rel = rel_err(torch, k(), p())
+            ok = rel <= 1e-2
+            checks.append({"kernel": "grouped_gemm", "case": "bf16 vs plain", "acc": name,
+                           "max_abs_err": err, "rel_err": rel, "ok": ok})
+            log(f"[check] grouped_gemm bf16 vs plain rel err {rel:.3e}")
+            check(ok, f"grouped_gemm bf16: rel err {rel:.3e} > 1e-2 of max|plain|")
+        # the unsorted result against a per-token product on 256 routed rows
+        want = torch.empty((256, Fe), dtype=torch.float64, device=dev)
+        for e in np.unique(eot[sample]):
+            sel = np.nonzero(eot[sample] == e)[0]
+            want[sel] = Xg[sample[sel]].double() @ Wg[int(e)].double()
+        _, rel_tok = rel_err(torch, Y[sample], want)
+        tok_tol = TOL["float32"] if dt == torch.float32 else 1e-2
+        check(rel_tok <= tok_tol, f"grouped_gemm {name}: per-token rel err {rel_tok:.3e}")
+        # library: one torch.matmul per expert group (64 calls); bf16 also
+        # torch._grouped_mm where this build has it
+        Xs = Xg[torch.from_numpy(order.astype(np.int64)).to(dev)]
+        starts = np.concatenate([[0], np.cumsum(counts_e)])
+        groups = [(int(starts[e]), int(starts[e + 1]), e) for e in range(E)
+                  if counts_e[e]]
+        lib = lambda: [torch.matmul(Xs[a:b], Wg[e]) for a, b, e in groups]  # noqa: E731
+        row = {"ms": time_ms(torch, k), "plain_ms": time_ms(torch, p, reps=5),
+               "library_ms": time_ms(torch, lib), "library": "torch.matmul per expert group",
+               "T": T, "T_pad": T_pad, "launches": launches_g, "per_token_rel_err": rel_tok,
+               "max_abs_err": err}
+        if dt == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+            offs = torch.from_numpy(np.cumsum(counts_e).astype(np.int32)).to(dev)
+            try:
+                row["grouped_mm_ms"] = time_ms(torch, lambda: torch._grouped_mm(Xs, Wg,
+                                                                                offs=offs))
+            except (RuntimeError, TypeError) as e:
+                row["grouped_mm_error"] = str(e)[:200]
+        es = Xg.element_size()
+        nby = (T_pad * Dm + E * Dm * Fe + T_pad * Fe) * es
+        peak = H100.peak_flops_fp32 if dt == torch.float32 else 989e12
+        row["bound_ms"], row["bound_ms_at_measured_bw"], row["bound_by"] = bytes_bound(
+            nby, 2 * T_pad * Dm * Fe, peak)
+        moe[name] = row
+        log(f"[moe] {name}: T={T} routed rows -> T_pad={T_pad}; kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f}, per-group torch.matmul {row['library_ms']:.4f}"
+            + (f", torch._grouped_mm {row['grouped_mm_ms']:.4f}" if "grouped_mm_ms" in row
+               else "") + f"; bound {row['bound_ms']:.4f} by {row['bound_by']}; per-token "
+            f"rel err {rel_tok:.1e}; launches {launches_g}")
+        if dt == torch.float32:
+            record("grouped_gemm", route="cuda", source="src/repro_torch/csrc/grouped_gemm.cu",
+                   replaces="src/repro/kernels/moe_gemm.py:59", max_abs_err=err,
+                   ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                   bound_by=row["bound_by"], library_ms=row["library_ms"],
+                   shape=f"deepseek-v2-lite experts E={E} D={Dm} F={Fe}, T_pad={T_pad} f32 "
+                         "(library: torch.matmul per expert group, 64 calls)")
+        del Xg, Wg, Xp, Xs, Y
+    record("grouped_gemm", launches=main_launches)   # the ops.grouped_gemm calls
+    out["moe"] = moe
+    del Xd, Wd
+
+    # 9c. the plan path for BSR: PlanConfig(format="bsr"), format="auto"
+    t0 = time.perf_counter()
+    nbs = args.bsr_n
+    bs = F.CSR.from_dense(M.block_sparse_dense(nbs, nbs, (8, 128), 0.25, seed=4))
+    xb = torch.from_numpy(np.random.default_rng(7).standard_normal(nbs)).to(dev)
+    plan_b = SpMVPlan.compile(bs, PlanConfig(format="bsr", chip=chip))
+    check(plan_b.report.kernel == "cuda", f"bsr plan runs {plan_b.report.kernel}")
+    CB.reset_launch_counts()
+    yb = plan_b(xb)
+    check(CB.launch_counts()["bell_spmm"] == 1, "bsr plan: bell_spmm not launched once")
+    compare("bell_spmm", f"bsr plan {nbs}^2 vs torch plan, f64 x", yb,
+            SpMVPlan.compile(plan_b.matrix, PlanConfig(chip=chip, backend="torch"))(xb))
+    plan_o = SpMVPlan.compile(plan_b.matrix, PlanConfig(chip=other_chip))
+    plan_o(xb)
+    check(plan_o.report.kernel == "cuda" and CB.launch_counts()["bell_spmm"] == 2,
+          "a bsr plan priced for another chip does not run bell_spmm")
+    bsr_model = {}
+    for mname, mat, held in (
+            (f"block_sparse_dense({nbs}, 0.25, seed 4)", bs, False),
+            (f"held-out block_sparse_dense({nbs}, 0.35, seed 11)", F.CSR.from_dense(
+                M.block_sparse_dense(nbs, nbs, (8, 128), 0.35, seed=11)), True)):
+        res = score_matrix(mname, mat, held)
+        check("bsr" in res["candidates"], f"{mname}: select_format did not price bsr")
+        if res["pick"] == "bsr":
+            plan_a = SpMVPlan.compile(mat, PlanConfig(format="auto", chip=chip))
+            before = CB.launch_counts()["bell_spmm"]
+            plan_a(torch.from_numpy(np.random.default_rng(8).standard_normal(nbs)).to(dev))
+            check(plan_a.report.kernel == "cuda"
+                  and CB.launch_counts()["bell_spmm"] == before + 1,
+                  f"{mname}: the auto plan picked bsr but did not run bell_spmm")
+        bsr_model[mname] = res
+    fit_m = next(r for r in bsr_model.values() if not r["held_out"])
+    held_m = next(r for r in bsr_model.values() if r["held_out"])
+    out["bsr_plans"] = {"matrices": bsr_model, "nnz": bs.nnz,
+                        "fitted_h100_bsr": fit_m["candidates"]["bsr"]["efficiency"],
+                        "host_s": time.perf_counter() - t0}
+    log(f"[bsr] {nbs}^2 ({bs.nnz} nnz): bsr plan runs {plan_b.report.kernel}, launches "
+        f"counted; auto picks {fit_m['pick']} (fastest {fit_m['fastest']}); fitted h100 bsr "
+        f"efficiency {out['bsr_plans']['fitted_h100_bsr']:.3f}; held out: picks "
+        f"{held_m['pick']}, fastest {held_m['fastest']}, predicted / measured of the pick "
+        f"{held_m['candidates'][held_m['pick']]['model_error']:.3f}")
+    del bs, plan_b, plan_o
+
     # --- report -----------------------------------------------------------------
     names = ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv", "sell_spmm", "stream_triad",
-             "gather_scp")
+             "gather_scp", "bell_spmm", "grouped_gemm")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: rows[n].get(k) for k in keys} for n in names]

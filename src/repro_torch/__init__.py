@@ -2,8 +2,10 @@
 
 The JAX package ``repro`` is the reference; this package re-implements its
 main path -- Holstein-Hubbard matrix, storage formats, kernel registry, SpMV
-plan, Lanczos -- in PyTorch, with hand-written CUDA kernels for Hopper in
-``csrc/``.  It imports neither ``jax`` nor ``repro``.
+plan, Lanczos -- the performance model, the sparse-weight layer
+(``models.sparse.SparseLinear``) and the grouped MoE expert GEMM
+(``kernels.ops.grouped_gemm``) in PyTorch, with hand-written CUDA kernels
+for Hopper in ``csrc/``.  It imports neither ``jax`` nor ``repro``.
 
 Entry points run on the card: a plan or a solve asked for no ``device``
 raises when CUDA is absent instead of falling back to the CPU.  Pass

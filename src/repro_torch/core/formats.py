@@ -1,10 +1,10 @@
 """Sparse storage formats of the paper, as containers of PyTorch tensors.
 
 Port of ``repro.core.formats``: COO, CSR (the paper's CRS), ELL, JDS (the
-paper's jagged diagonals), SELL-C-sigma (blocked JDS), DIA, the hybrid DIA +
-SELL split and the matrix-free generated operator, and ``matrix_stats``
-(the pattern statistics the performance model reads).  BSR comes with its
-block SpMM kernel in a later slice.
+paper's jagged diagonals), SELL-C-sigma (blocked JDS), BSR (block CSR with
+dense (bm, bn) blocks), DIA, the hybrid DIA + SELL split and the
+matrix-free generated operator, and ``matrix_stats`` (the pattern
+statistics the performance model reads).
 
 Containers are frozen dataclasses whose array fields are CPU tensors; the
 packing itself is host preprocessing in numpy, exactly as in the paper, and
@@ -152,13 +152,13 @@ def pack_chunks_flat(rows, C: int, order=None, rid_fill: int | None = None,
 
 
 def container_values(obj) -> torch.Tensor:
-    """The stored value tensor of any container (val / vals / data)."""
+    """The stored value tensor of any container (val / vals / blocks / data)."""
     if isinstance(obj, MatrixFreeOperator):
         if obj.data is None:
             raise TypeError("MatrixFreeOperator with fully generated values "
                             "stores no value array")
         return obj.data
-    for attr in ("val", "vals", "data"):
+    for attr in ("val", "vals", "blocks", "data"):
         if hasattr(obj, attr):
             return getattr(obj, attr)
     raise TypeError(f"{type(obj).__name__} has no value array")
@@ -197,7 +197,8 @@ def _quantize_flat(v: np.ndarray, group_ids: np.ndarray, n_groups: int,
 
 
 def _quantize_axis0(v: np.ndarray, value_dtype: str):
-    """Per-leading-axis-group quantization (DIA diagonals)."""
+    """Per-leading-axis-group quantization (ELL rows, BSR blocks, DIA
+    diagonals)."""
     n = v.shape[0]
     flat = np.abs(v.astype(np.float64)).reshape(n, -1)
     amax = flat.max(axis=1) if flat.size else np.zeros(n)
@@ -234,7 +235,7 @@ def dequantize(obj):
         return _replace_values(obj, vf, None)
     vn = _np(v).astype(np.float32)
     scale = _np(obj.scale)
-    if isinstance(obj, (ELL, DIA)):
+    if isinstance(obj, (ELL, BSR, DIA)):
         vf = vn * scale.reshape((vn.shape[0],) + (1,) * (vn.ndim - 1))
     else:
         ids, _ = _flat_group_ids(obj)
@@ -255,6 +256,9 @@ def _replace_values(obj, new_values, new_scale):
     if isinstance(obj, SELL):
         return SELL(obj.chunk_ptr, obj.chunk_width, obj.col_idx, new_values,
                     obj.perm, obj.shape, obj.C, obj.sigma, obj.nnz, new_scale)
+    if isinstance(obj, BSR):
+        return BSR(obj.block_row_ptr, obj.block_col_idx, new_values, obj.shape,
+                   obj.block_shape, new_scale)
     if isinstance(obj, DIA):
         return DIA(obj.offsets, new_values, obj.shape, new_scale)
     raise TypeError(f"cannot replace values on {type(obj).__name__}")
@@ -281,7 +285,7 @@ def with_value_dtype(obj, value_dtype: str):
     f64/f32/bf16/f16 are plain casts (``scale`` stays None).  int8 and
     fp8_e4m3 store symmetrically quantized values plus an fp32 ``scale``
     per group: row for CSR/COO/ELL, permuted row for JDS, chunk for SELL,
-    diagonal for DIA.
+    block for BSR, diagonal for DIA.
     """
     if value_dtype not in VALUE_DTYPES:
         raise ValueError(f"value_dtype={value_dtype!r}; expected one of "
@@ -303,7 +307,7 @@ def with_value_dtype(obj, value_dtype: str):
     if value_dtype not in _QMAX:
         return _replace_values(obj, _recast(v, value_dtype), None)
     vn = _np(v)
-    if isinstance(obj, (ELL, DIA)):
+    if isinstance(obj, (ELL, BSR, DIA)):
         q, scale = _quantize_axis0(vn, value_dtype)
     else:
         ids, n_groups = _flat_group_ids(obj)
@@ -388,6 +392,14 @@ class CSR:
         row_ptr = np.zeros(n_rows + 1, dtype=np.int32)
         np.cumsum(counts, out=row_ptr[1:])
         return CSR(row_ptr, m.cols.to(torch.int32), m.vals, m.shape)
+
+    @staticmethod
+    def from_dense(d, tol: float = 0.0) -> "CSR":
+        """Every entry of the dense array ``d`` with ``|v| > tol``."""
+        d = _np(d)
+        rows, cols = np.nonzero(np.abs(d) > tol)
+        return CSR.from_coo(COO(rows.astype(np.int32), cols.astype(np.int32),
+                                d[rows, cols], d.shape))
 
     def to_coo(self) -> COO:
         rows = np.repeat(np.arange(self.n_rows, dtype=np.int32), self.row_lengths())
@@ -580,6 +592,109 @@ class SELL:
         val[dest] = v
         return SELL(chunk_ptr, cw, col_idx, _t(val, m.val.dtype), perm, m.shape,
                     C, int(sigma), m.nnz)
+
+
+# ---------------------------------------------------------------------------
+# BSR (block CSR with dense subblocks)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class BSR:
+    """Block CSR with dense ``(bm, bn)`` blocks: block row ``r`` holds
+    blocks ``block_row_ptr[r]:block_row_ptr[r+1]``, block ``b`` covering
+    columns ``block_col_idx[b] * bn`` onwards.  Index traffic amortizes
+    over ``bm * bn`` stored entries -- the paper's "dense subblocks" remark
+    made a format, the one for structured-sparse weights."""
+
+    block_row_ptr: torch.Tensor  # (n_brows+1,) int32
+    block_col_idx: torch.Tensor  # (n_blocks,) int32
+    blocks: torch.Tensor         # (n_blocks, bm, bn)
+    shape: tuple[int, int]
+    block_shape: tuple[int, int]
+    scale: torch.Tensor = None   # (n_blocks,) fp32 per-block scale for int8/fp8
+
+    def __post_init__(self):
+        for f in ("block_row_ptr", "block_col_idx", "blocks", "scale"):
+            object.__setattr__(self, f, _t(getattr(self, f)))
+        object.__setattr__(self, "block_shape", tuple(int(b) for b in self.block_shape))
+
+    @property
+    def n_blocks(self) -> int:
+        return int(self.block_col_idx.shape[0])
+
+    @property
+    def nnz(self) -> int:  # stored (dense-block) entries
+        bm, bn = self.block_shape
+        return self.n_blocks * bm * bn
+
+    @staticmethod
+    def from_dense(d, block_shape: tuple[int, int] = (8, 128),
+                   tol: float = 0.0) -> "BSR":
+        """Every ``(bm, bn)`` tile of ``d`` with an entry ``|v| > tol``, in
+        row-major tile order (the reference's packer)."""
+        d = _np(d)
+        bm, bn = block_shape
+        M, N = d.shape
+        assert M % bm == 0 and N % bn == 0, \
+            f"dense {d.shape} not divisible by block {tuple(block_shape)}"
+        nbr, nbc = M // bm, N // bn
+        tiles = d.reshape(nbr, bm, nbc, bn).transpose(0, 2, 1, 3)
+        keep = np.abs(tiles).max(axis=(2, 3)) > tol
+        rows, cols = np.nonzero(keep)
+        brp = np.zeros(nbr + 1, dtype=np.int32)
+        np.cumsum(np.bincount(rows, minlength=nbr), out=brp[1:])
+        return BSR(brp, cols.astype(np.int32), tiles[rows, cols], d.shape,
+                   tuple(block_shape))
+
+    @staticmethod
+    def from_csr(m: CSR, block_shape: tuple[int, int] = (8, 128),
+                 tol: float = 0.0) -> "BSR":
+        """The arrays of ``BSR.from_dense(m.to_dense(), block_shape, tol)``,
+        built from the entries alone (no dense matrix): duplicates are
+        summed in entry order, as ``to_dense`` sums them, and a tile whose
+        summed entries are all within ``tol`` of zero is dropped."""
+        _require_materialized(m, "BSR.from_csr")
+        _require_unquantized(m, "BSR.from_csr")
+        bm, bn = block_shape
+        M, N = m.shape
+        if M % bm or N % bn:
+            raise ValueError(f"matrix {tuple(m.shape)} not divisible by block "
+                             f"{tuple(block_shape)}")
+        nbr, nbc = M // bm, N // bn
+        r = np.repeat(np.arange(M, dtype=np.int64), m.row_lengths())
+        c = _np(m.col_idx).astype(np.int64)
+        v = _np(m.val)
+        key, inv = np.unique(r // bm * nbc + c // bn, return_inverse=True)
+        tiles = np.zeros((key.shape[0], bm, bn), dtype=v.dtype)
+        lin = r * N + c
+        if lin.size < 2 or (np.diff(lin) > 0).all():   # no duplicate entries
+            tiles[inv, r % bm, c % bn] = v
+        else:
+            np.add.at(tiles, (inv, r % bm, c % bn), v)
+        keep = np.abs(tiles).max(axis=(1, 2)) > tol if key.size else \
+            np.zeros(0, bool)
+        key, tiles = key[keep], tiles[keep]
+        brp = np.zeros(nbr + 1, dtype=np.int32)
+        np.cumsum(np.bincount(key // nbc, minlength=nbr), out=brp[1:])
+        return BSR(brp, (key % nbc).astype(np.int32), _t(tiles, m.val.dtype),
+                   m.shape, tuple(block_shape))
+
+    def to_dense(self) -> np.ndarray:
+        bm, bn = self.block_shape
+        M, N = self.shape
+        blocks = _np(self.blocks)
+        d = np.zeros((M // bm, N // bn, bm, bn), dtype=blocks.dtype)
+        brp = _np(self.block_row_ptr)
+        rows = np.repeat(np.arange(M // bm), np.diff(brp))
+        np.add.at(d, (rows, _np(self.block_col_idx)), blocks)
+        return d.transpose(0, 2, 1, 3).reshape(M, N)
+
+    def density(self) -> float:
+        """Stored blocks over all ``(bm, bn)`` tiles of the shape."""
+        nbr = self.shape[0] // self.block_shape[0]
+        nbc = self.shape[1] // self.block_shape[1]
+        return self.n_blocks / max(1, nbr * nbc)
 
 
 # ---------------------------------------------------------------------------
@@ -872,13 +987,13 @@ def _convert(m: CSR, fmt: str, **kw):
             return m
         return MatrixFreeOperator.from_csr(m, **kw)
     if fmt == "bsr":
-        raise ValueError(f"format {fmt!r} is not ported yet (see ROADMAP.md)")
+        return BSR.from_csr(m, **kw)
     raise ValueError(f"unknown format {fmt!r}")
 
 
 #: the ``convert`` keys of the port's containers
-FORMATS = {"csr": CSR, "ell": ELL, "jds": JDS, "sell": SELL, "dia": DIA,
-           "hybrid": HybridDIA, "matrix_free": MatrixFreeOperator}
+FORMATS = {"csr": CSR, "ell": ELL, "jds": JDS, "sell": SELL, "bsr": BSR,
+           "dia": DIA, "hybrid": HybridDIA, "matrix_free": MatrixFreeOperator}
 
 
 def matrix_stats(m: CSR) -> dict:

@@ -10,6 +10,8 @@ patterns.  Host numpy code, producing byte-for-byte the patterns of
   over a band, symmetric.
 * ``laplacian_2d`` and ``power_law_rows`` -- the 5-point stencil and the
   load-imbalance stressor.
+* ``block_sparse_dense`` -- a dense array with random dense-block support,
+  the pattern BSR stores without padding.
 """
 from __future__ import annotations
 
@@ -216,3 +218,17 @@ def power_law_rows(n: int, n_cols: int, mean_nnz: float = 8.0, alpha: float = 1.
     vals = rng.standard_normal(len(rows)).astype(dtype)
     return CSR.from_coo(COO(rows.astype(np.int32), cols.astype(np.int32), vals,
                             (n, n_cols)))
+
+
+def block_sparse_dense(m: int, n: int, block: tuple[int, int], block_density: float,
+                       seed: int = 0, dtype=np.float32) -> np.ndarray:
+    """Dense (m, n) array with a random block-sparse support -- BSR's home
+    turf (structured-sparse weights).  The same generator calls as the
+    reference's, so the array comes out bit-equal."""
+    rng = np.random.default_rng(seed)
+    bm, bn = block
+    assert m % bm == 0 and n % bn == 0
+    mask = rng.random((m // bm, n // bn)) < block_density
+    d = rng.standard_normal((m, n)).astype(dtype)
+    d *= np.kron(mask, np.ones((bm, bn), dtype=dtype))
+    return d

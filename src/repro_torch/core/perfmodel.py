@@ -113,6 +113,19 @@ def flat_sell_access_model(am: AccessModel, overhead: float = 1.0) -> AccessMode
                    index_bytes=2 * am.index_bytes * overhead)
 
 
+def balance_bsr(am: AccessModel, block_shape: tuple[int, int], fill_ratio: float) -> float:
+    """BSR: index traffic amortized over bm*bn, invec reuse factor bm inside
+    a block (each x element feeds bm rows), a resvec tile load + store per
+    block row.  ``fill_ratio`` = stored elements / true nnz (explicit zeros
+    streamed and multiplied); balance is per *useful* Flop, so the streamed
+    terms scale by it."""
+    bm, bn = block_shape
+    per_stored = (am.value_bytes + am.index_bytes / (bm * bn)
+                  + am.value_bytes * am.invec_reuse / bm)  # stride 1 in the block
+    per_stored += 2 * am.value_bytes / bn
+    return per_stored * fill_ratio / 2.0
+
+
 def balance_dia(am: AccessModel, n_diags: int, occupancy: float = 1.0,
                 invec_cached: bool = True) -> float:
     """DIA: zero index traffic, stride-1 shifted invec reads.  Streams one
@@ -392,6 +405,8 @@ def balance_of(fmt_obj, am: AccessModel | None = None, backend: str = "torch",
         npr = fmt_obj.nnz / max(1, fmt_obj.shape[0])
         return balance_sell(sell_stream_am(fmt_obj, am, backend, chip),
                             stored / max(1, fmt_obj.nnz), npr)
+    if isinstance(fmt_obj, F.BSR):
+        return balance_bsr(am, fmt_obj.block_shape, fill_ratio=1.0)
     if isinstance(fmt_obj, F.DIA):
         stored = int(fmt_obj.data.numel())
         nd = max(1, int(fmt_obj.offsets.shape[0]))
@@ -416,8 +431,8 @@ def balance_of(fmt_obj, am: AccessModel | None = None, backend: str = "torch",
 #: tables (kept so that the port's picks on those families equal the
 #: reference's).  ``h100`` prices, per format, the backend that
 #: ``backend="auto"`` runs on the card: the CUDA kernel for csr, sell,
-#: dia, hybrid and matrix_free, the composite ``torch`` entry for ell and
-#: jds (no kernel).  Each value is the achieved efficiency as
+#: dia, hybrid, matrix_free and bsr, the composite ``torch`` entry for ell
+#: and jds (no kernel).  Each value is the achieved efficiency as
 #: ``fit_efficiency_from_db`` defines it -- the model's time at efficiency
 #: 1 with the measured STREAM-triad bandwidth (3.011 TB/s), over the
 #: measured plan time (CUDA events) -- as the geometric mean over the
@@ -425,7 +440,10 @@ def balance_of(fmt_obj, am: AccessModel | None = None, backend: str = "torch",
 #: candidate (the Holstein surrogate N = 1,201,200, laplacian_2d(1100,
 #: 1100), power_law_rows at 1,048,576 rows; the L = 4 exact matrix, 9,492
 #: nnz, measures launch latency and is left out); NVIDIA H100 80GB HBM3 at
-#: 700.00 W, the run PERF.md section 6 calls chip run 2.
+#: 700.00 W, the run PERF.md section 6 calls chip run 2 (of PR 12).  bsr
+#: is fitted the same way on ``block_sparse_dense(8192, 8192, (8, 128),
+#: 0.25, seed=4)`` with an f64 x (``chip_smoke.py`` phase 9, BELL kernel,
+#: 3.067 TB/s measured; chip run 4 of PR 13 on the same card and limit).
 EXEC_EFFICIENCY = {
     "tpu": {
         "csr": 0.10, "coo": 0.08, "jds": 0.15, "ell": 0.90,
@@ -440,7 +458,7 @@ EXEC_EFFICIENCY = {
     "h100": {
         "csr": 0.417, "jds": 0.201, "ell": 0.280,
         "sell": 0.330, "hybrid": 0.421, "dia": 0.619,
-        "matrix_free": 0.320,
+        "matrix_free": 0.320, "bsr": 0.502,
     },
 }
 
@@ -509,12 +527,14 @@ def resolve_stream_backend(backend: str = "auto", device=None) -> str:
 def select_format(m, *, am: AccessModel | None = None, chip: ChipSpec = H100,
                   C: int = 8, sigma: int | None = None, allowed=None,
                   efficiency: dict | None = None, max_dia_diags: int = 256,
+                  bsr_block: tuple[int, int] = (8, 128),
                   backend: str = "auto", device=None, tuning=None) -> FormatChoice:
     """Pick the storage format for a concrete CSR/COO container (the cold
     path of the reference's selector): exact pad ratios, counted diagonal
-    occupancy, matrix-free detection, and every candidate's balance through
-    the execution-aware roofline (``predict_exec``).  BSR is not a
-    candidate until its kernel is ported.
+    occupancy, matrix-free detection, counted BSR block fill, and every
+    candidate's balance through the execution-aware roofline
+    (``predict_exec``).  BSR is a candidate when the shape tiles by
+    ``bsr_block`` and the populated blocks are at least a quarter full.
 
     ``backend`` is the stream-byte regime (``"auto"`` = the executor on
     ``device``; see ``resolve_stream_backend``).  ``sigma=None`` autotunes
@@ -595,6 +615,17 @@ def select_format(m, *, am: AccessModel | None = None, chip: ChipSpec = H100,
             balances["matrix_free"] = balance_matrix_free(am, mf.n_stored, m.shape[0], nnz)
             kwargs["matrix_free"] = {}
 
+    # BSR: only when the shape tiles exactly and populated blocks are full
+    bm, bn = bsr_block
+    if m.shape[0] % bm == 0 and m.shape[1] % bn == 0 and nnz > 0:
+        rows = F._np(coo.rows).astype(np.int64)
+        cols = F._np(coo.cols).astype(np.int64)
+        blocks = np.unique(rows // bm * (m.shape[1] // bn) + cols // bn)
+        fill = nnz / (len(blocks) * bm * bn)
+        if fill >= 0.25:
+            balances["bsr"] = balance_bsr(am, bsr_block, fill_ratio=1.0 / fill)
+            kwargs["bsr"] = {"block_shape": tuple(bsr_block)}
+
     if allowed is not None:
         allowed = set(allowed)
         balances = {k: v for k, v in balances.items() if k in allowed}
@@ -630,6 +661,9 @@ def matrix_stream_bytes(fmt_obj, am: AccessModel | None = None,
         stored = sell_streamed_elements(fmt_obj, backend, chip)
         am_s = sell_stream_am(fmt_obj, am, backend, chip)
         return float((am_s.value_bytes + am_s.index_bytes) * stored)
+    if isinstance(fmt_obj, F.BSR):
+        bm, bn = fmt_obj.block_shape
+        return float((am.value_bytes * bm * bn + am.index_bytes) * fmt_obj.n_blocks)
     if isinstance(fmt_obj, F.DIA):
         nd, n = fmt_obj.data.shape
         return float(am.value_bytes * nd * n)
@@ -724,6 +758,9 @@ def spmv_streamed_bytes(fmt_obj, am: AccessModel | None = None,
         am_s = sell_stream_am(fmt_obj, am, backend, chip)
         return (am_s.value_bytes + am_s.index_bytes
                 + am_s.invec_bytes_per_access()) * stored + 2 * vb * fmt_obj.shape[0]
+    if isinstance(fmt_obj, F.BSR):
+        bm, bn = fmt_obj.block_shape
+        return (vb * bm * bn + am.index_bytes + vb * bn + 2 * vb * bm) * fmt_obj.n_blocks
     if isinstance(fmt_obj, F.DIA):
         nd, n = fmt_obj.data.shape
         return vb * nd * n + vb * n + 2 * vb * n

@@ -34,11 +34,11 @@ import torch
 from ..kernels import registry as R
 from ..utils.hw import H100, ChipSpec, default_device
 from . import perfmodel as PM
-from .formats import COO, CSR, DIA, ELL, JDS, SELL, HybridDIA, MatrixFreeOperator
+from .formats import BSR, COO, CSR, DIA, ELL, JDS, SELL, HybridDIA, MatrixFreeOperator
 from .planconfig import PlanConfig
 
-_FMT_NAMES = {CSR: "csr", ELL: "ell", JDS: "jds", SELL: "sell", DIA: "dia",
-              HybridDIA: "hybrid", MatrixFreeOperator: "matrix_free"}
+_FMT_NAMES = {CSR: "csr", ELL: "ell", JDS: "jds", SELL: "sell", BSR: "bsr",
+              DIA: "dia", HybridDIA: "hybrid", MatrixFreeOperator: "matrix_free"}
 
 
 @dataclass(frozen=True)
@@ -226,14 +226,24 @@ def _compile(matrix, fmt: str, backend: str, device: torch.device,
     return SpMVPlan(matrix, report, ck_v.fn, ck_m.fn, device)
 
 
+#: the formats ``plan_all_formats`` plans by default (bsr joins them when
+#: the shape tiles by its block)
+ALL_FORMATS = ("csr", "ell", "jds", "sell", "hybrid")
+
+
 def plan_all_formats(m: CSR, config: PlanConfig | None = None, *,
-                     formats=("csr", "ell", "jds", "sell", "hybrid"),
-                     **conv_kw) -> dict:
+                     formats=None, **conv_kw) -> dict:
     """Convert and plan a CSR matrix into each of ``formats`` under
-    ``config`` (its ``format`` is ignored).  Returns {name: SpMVPlan}; the
-    paper's "hint to the respective optimal storage scheme" is then
-    ``min`` over ``plan.report.predicted_time_s``.  ``conv_kw`` maps a
-    format to its conversion kwargs."""
+    ``config`` (its ``format`` is ignored).  ``formats=None`` is
+    ``ALL_FORMATS``, plus ``bsr`` when the shape tiles by the bsr block
+    (``conv_kw["bsr"]["block_shape"]``, default (8, 128)).  Returns {name:
+    SpMVPlan}; the paper's "hint to the respective optimal storage scheme"
+    is then ``min`` over ``plan.report.predicted_time_s``.  ``conv_kw`` maps
+    a format to its conversion kwargs."""
     cfg = (config or PlanConfig()).replace(format=None)
+    if formats is None:
+        bm, bn = conv_kw.get("bsr", {}).get("block_shape", (8, 128))
+        tiles = m.shape[0] % bm == 0 and m.shape[1] % bn == 0
+        formats = ALL_FORMATS + (("bsr",) if tiles else ())
     return {fmt: SpMVPlan.compile(_convert_cached(m, fmt, conv_kw.get(fmt, {})), cfg)
             for fmt in formats}

@@ -4,9 +4,9 @@ The reference's record, cut to the options the port carries, plus the
 ``device`` the plan runs on:
 
 * ``format`` -- None plans the container as it is; a name ("csr", "ell",
-  "jds", "sell", "dia", "hybrid", "matrix_free") converts a CSR/COO source
-  first; ``"auto"`` lets ``perfmodel.select_format`` pick (with an
-  autotuned SELL sigma).
+  "jds", "sell", "bsr", "dia", "hybrid", "matrix_free") converts a CSR/COO
+  source first (bsr in (8, 128) blocks); ``"auto"`` lets
+  ``perfmodel.select_format`` pick (with an autotuned SELL sigma).
 * ``value_dtype`` -- value-storage precision (f64, f32, bf16, f16,
   fp8_e4m3, int8); kernels accumulate in >= f32.
 * ``chip`` / ``am`` -- the roofline parameters (default: the H100 data

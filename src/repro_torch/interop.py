@@ -2,7 +2,9 @@
 
 ``from_reference_arrays(kind, arrays, meta)`` builds a port container from
 the numpy arrays of a container of the same kind and its scalar metadata,
-so both packages can be fed the identical matrix.  It reads arrays only and
+so both packages can be fed the identical matrix; ``sparse_linear_from_arrays``
+builds a ``SparseLinear`` over such a container, and ``expert_weights``
+takes MoE expert weights ``W (E, D, F)`` over.  It reads arrays only and
 imports nothing of the reference package; bf16 and fp8 arrays (whose numpy
 dtypes come from an extension package) are taken over by their raw bits.
 """
@@ -31,7 +33,7 @@ def as_tensor(a) -> torch.Tensor | None:
 
 def from_reference_arrays(kind: str, arrays: dict, meta: dict):
     """A port container of ``kind`` ("coo", "csr", "ell", "jds", "sell",
-    "dia", "hybrid", "matrix_free") from ``arrays`` (name -> array; for "hybrid" the dicts
+    "bsr", "dia", "hybrid", "matrix_free") from ``arrays`` (name -> array; for "hybrid" the dicts
     ``arrays["dia"]`` / ``arrays["rest"]``) and ``meta`` (shape and the
     container's scalar fields; for "hybrid" ``meta["dia"]`` /
     ``meta["rest"]``)."""
@@ -50,6 +52,9 @@ def from_reference_arrays(kind: str, arrays: dict, meta: dict):
         return F.SELL(a["chunk_ptr"], a["chunk_width"], a["col_idx"], a["val"],
                       a["perm"], shape, int(meta["C"]), int(meta["sigma"]),
                       int(meta["nnz"]), a.get("scale"))
+    if kind == "bsr":
+        return F.BSR(a["block_row_ptr"], a["block_col_idx"], a["blocks"], shape,
+                     tuple(int(b) for b in meta["block_shape"]), a.get("scale"))
     if kind == "dia":
         return F.DIA(a["offsets"], a["data"], shape, a.get("scale"))
     if kind == "hybrid":
@@ -65,3 +70,24 @@ def from_reference_arrays(kind: str, arrays: dict, meta: dict):
             nnz=int(meta["nnz"]), stored_nnz=int(meta["stored_nnz"]),
             value_dtype=str(meta["value_dtype"]))
     raise ValueError(f"unknown container kind {kind!r}")
+
+
+def sparse_linear_from_arrays(fmt: str, arrays: dict, meta: dict, *,
+                              density: float | None = None, backend: str = "auto",
+                              device=None):
+    """A ``models.sparse.SparseLinear`` whose weight is the ``fmt`` ("bsr"
+    or "sell") container of ``arrays`` / ``meta`` (as
+    ``from_reference_arrays`` takes them)."""
+    from .models.sparse import SparseLinear
+    return SparseLinear(fmt, from_reference_arrays(fmt, arrays, meta), density=density,
+                        backend=backend, device=device)
+
+
+def expert_weights(W, device=None) -> torch.Tensor:
+    """MoE expert weights ``W (E, D, F)`` (numpy, bf16 by its bits) as a
+    tensor on ``device`` (default the card)."""
+    from .utils.hw import default_device
+    t = as_tensor(W)
+    if t.dim() != 3:
+        raise ValueError(f"expert weights must be (E, D, F), got shape {tuple(t.shape)}")
+    return t.to(default_device(device))

@@ -3,8 +3,9 @@
 Each source ``csrc/<source>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface and loaded with ``ctypes``;
 a source holds one kernel's C entry point, or several (``gather_bench.cu``
-holds ``stream_triad`` and ``gather_scp``).  The build runs at first use --
-one ``nvcc`` per source, all started together -- into ``build/kernels/`` at
+holds ``stream_triad`` and ``gather_scp``): eight sources, nine kernels.
+The build runs at first use -- one ``nvcc`` per source, all started
+together -- into ``build/kernels/`` at
 the repository root (git-ignored).  A library's file name carries a hash of
 its source and flags, so an edited kernel is rebuilt and an unchanged one is
 loaded as it is.
@@ -33,7 +34,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {"sell_spmv": ("sell_spmv",), "dia_spmv": ("dia_spmv",),
            "csr_spmv": ("csr_spmv",), "mf_spmv": ("mf_spmv",),
            "sell_spmm": ("sell_spmm",),
-           "gather_bench": ("stream_triad", "gather_scp")}
+           "gather_bench": ("stream_triad", "gather_scp"),
+           "bell_spmm": ("bell_spmm",), "grouped_gemm": ("grouped_gemm",)}
 KERNELS = tuple(k for names in SOURCES.values() for k in names)
 SOURCE_OF = {k: src for src, names in SOURCES.items() for k in names}
 

@@ -98,7 +98,7 @@ def _ensure_populated() -> None:
     if _POPULATED:
         return
     _POPULATED = True
-    from . import csr, dia, ell, hybrid, jds, matrix_free, sell  # noqa: F401
+    from . import bsr, csr, dia, ell, hybrid, jds, matrix_free, sell  # noqa: F401
 
 
 def probe_cuda(matrix, ctx: KernelContext) -> Capability:

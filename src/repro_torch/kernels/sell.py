@@ -44,11 +44,11 @@ def padded_views(m: SELL) -> tuple[torch.Tensor, torch.Tensor]:
     chunk_of = np.repeat(np.arange(nc), cw * C)
     pos = np.arange(int(cp[-1])) - cp[chunk_of]
     dest = torch.from_numpy(chunk_of * wmax * C + pos)
-    col = torch.zeros(nc * wmax * C, dtype=torch.int32).index_copy_(0, dest, m.col_idx)
+    col = torch.zeros(nc * wmax * C, dtype=torch.int32).index_copy_(0, dest, m.col_idx.cpu())
     # values move as raw bits (index_copy_ takes no fp8), zero bits = 0.0
     bits = _BITS[m.val.element_size()]
     val = torch.zeros(nc * wmax * C, dtype=bits).index_copy_(
-        0, dest, m.val.view(bits)).view(m.val.dtype)
+        0, dest, m.val.cpu().view(bits)).view(m.val.dtype)
     return col.reshape(nc, wmax, C), val.reshape(nc, wmax, C)
 
 

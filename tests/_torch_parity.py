@@ -31,6 +31,7 @@ _MATS: dict = {}
 def ref_matrix(name: str):
     """Reference CSR of a named test matrix (built once per process)."""
     if name not in _MATS:
+        from repro.core import formats as RF
         from repro.core import matrices as RM
         build = {
             "surrogate600": lambda: RM.holstein_hubbard_surrogate(600, seed=1),
@@ -42,6 +43,9 @@ def ref_matrix(name: str):
             "laplace24": lambda: RM.laplacian_2d(24, 31),
             "laplace48": lambda: RM.laplacian_2d(48, 48),
             "powerlaw": lambda: RM.power_law_rows(2048, 2048, max_nnz=64),
+            # the corpus's blocksparse spec: (8, 128) blocks at 25 % density
+            "blocksparse": lambda: RF.CSR.from_dense(
+                RM.block_sparse_dense(1024, 1024, (8, 128), 0.25, seed=4)),
         }[name]
         _MATS[name] = build()
     return _MATS[name]
@@ -49,6 +53,7 @@ def ref_matrix(name: str):
 
 def port_matrix(name: str):
     """The port's CSR of the same named matrix, from its own generators."""
+    from repro_torch.core import formats as PF
     from repro_torch.core import matrices as PM
     return {
         "surrogate600": lambda: PM.holstein_hubbard_surrogate(600, seed=1),
@@ -59,6 +64,8 @@ def port_matrix(name: str):
         "laplace24": lambda: PM.laplacian_2d(24, 31),
         "laplace48": lambda: PM.laplacian_2d(48, 48),
         "powerlaw": lambda: PM.power_law_rows(2048, 2048, max_nnz=64),
+        "blocksparse": lambda: PF.CSR.from_dense(
+            PM.block_sparse_dense(1024, 1024, (8, 128), 0.25, seed=4)),
     }[name]()
 
 
@@ -97,6 +104,7 @@ _FIELDS = {
     "ELL": ("col_idx", "val", "scale"),
     "JDS": ("jd_ptr", "col_idx", "val", "perm", "scale"),
     "SELL": ("chunk_ptr", "chunk_width", "col_idx", "val", "perm", "scale"),
+    "BSR": ("block_row_ptr", "block_col_idx", "blocks", "scale"),
     "DIA": ("offsets", "data", "scale"),
     "MatrixFreeOperator": ("data",),
 }
@@ -117,6 +125,8 @@ def assert_same_container(ref, port):
         assert ref.nnz == port.nnz
     if kind == "SELL":
         assert (ref.C, ref.sigma) == (port.C, port.sigma)
+    if kind == "BSR":
+        assert tuple(ref.block_shape) == tuple(port.block_shape)
     if kind == "MatrixFreeOperator":
         for f in ("offsets", "periods", "los", "his", "gen_values", "nnz",
                   "stored_nnz", "value_dtype"):
@@ -127,7 +137,7 @@ def to_port(ref):
     """The port's container holding the reference container's arrays."""
     from repro_torch.interop import from_reference_arrays
     kind = {"COO": "coo", "CSR": "csr", "ELL": "ell", "JDS": "jds",
-            "SELL": "sell", "DIA": "dia",
+            "SELL": "sell", "BSR": "bsr", "DIA": "dia",
             "HybridDIA": "hybrid", "MatrixFreeOperator": "matrix_free"}[
                 type(ref).__name__]
     if kind == "hybrid":

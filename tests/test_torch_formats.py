@@ -112,7 +112,13 @@ def test_interop_round_trip_is_the_port_pack():
 
 
 def test_convert_refuses_unported_formats():
-    with pytest.raises(ValueError, match="not ported"):
+    """Every format of the reference is ported now: a name outside
+    ``FORMATS`` is refused, and bsr refuses a shape its block does not tile."""
+    assert set(PF.FORMATS) == {"csr", "ell", "jds", "sell", "bsr", "dia", "hybrid",
+                               "matrix_free"}
+    with pytest.raises(ValueError, match="unknown format"):
+        PF.convert(port_matrix("exact3"), "bcsr")
+    with pytest.raises(ValueError, match="not divisible"):
         PF.convert(port_matrix("exact3"), "bsr")
 
 

@@ -17,6 +17,7 @@ from _torch_parity import (  # noqa: E402
     VALUE_DTYPE_TOL, VALUE_DTYPES, as_np, operand, port_apply, ref_apply, ref_matrix,
     rel_err, to_port, x64)
 from repro.core import formats as RF  # noqa: E402
+from repro_torch.core import formats as PF  # noqa: E402
 from repro_torch.kernels import cuda_build as CB  # noqa: E402
 from repro_torch.kernels import registry as PR  # noqa: E402
 
@@ -110,7 +111,7 @@ def test_registry_table_covers_the_slice():
         for be in ("torch", "loop_reference"):
             assert (fmt, "spmm", be) in keys
     cuda_spmm = {k[0] for k in keys if k[1:] == ("spmm", "cuda")}
-    assert cuda_spmm == {"matrix_free", "sell"}  # hybrid SpMM stays torch
+    assert cuda_spmm == {"matrix_free", "sell", "bsr"}  # hybrid SpMM stays torch
     loops = [e for e in PR.entries() if e.backend == "loop_reference"]
     assert loops and not any(e.auto for e in loops)
 
@@ -172,6 +173,20 @@ def _wrapper_cases():
     idx = torch.from_numpy(np.random.default_rng(13).integers(0, 1200, 1000).astype(np.int32))
     yield ("gather_scp", lambda: gather_bench.gather_scp(ta, idx, x),
            lambda: gather_bench.gather_scp_plain(ta, idx, x))
+    from repro_torch.core.matrices import block_sparse_dense
+    from repro_torch.kernels import bsr_spmm, moe_gemm
+    b = PF.with_value_dtype(PF.BSR.from_dense(
+        block_sparse_dense(64, 256, (8, 128), 0.5, seed=1)), "fp8_e4m3")
+    bc, sl = bsr_spmm.bsr_to_bell(b)
+    sc, ln = bsr_spmm.bell_scale(b), bsr_spmm.bell_row_nblocks(b)
+    Xb = torch.from_numpy(operand(256, 3, seed=14))
+    yield ("bell_spmm", lambda: bsr_spmm.bell_spmm_arrays(bc, sl, Xb, sc, ln, 64),
+           lambda: bsr_spmm.bell_spmm_plain(bc, sl, Xb, sc, 64))
+    te = torch.tensor([0, 2, 1, 1], dtype=torch.int32)
+    Xg = torch.from_numpy(operand(32, 12, seed=15))
+    Wg = torch.from_numpy(operand(36, 10, seed=16).reshape(3, 12, 10))
+    yield ("grouped_gemm", lambda: moe_gemm.grouped_gemm_arrays(te, Xg, Wg, bt=8),
+           lambda: moe_gemm.grouped_gemm_plain(te, Xg, Wg, 8))
 
 
 @pytest.mark.parametrize("idx", range(len(CB.KERNELS)), ids=CB.KERNELS)

@@ -5,8 +5,8 @@ Model functions agree to 1e-12 relative (the same arithmetic in another
 package); picks are equal.  The reference's stream regimes map to the
 port's: ``xla`` (its composite backend) -> ``torch``, ``pallas`` (its
 kernels) -> ``cuda``.  Picks are compared on ``cpu`` and ``tpu`` chips,
-where both packages use the reference's efficiency tables; BSR is left out
-of the reference's candidates (the port has no BSR yet).
+where both packages use the reference's efficiency tables, over every
+candidate the reference scores, BSR included.
 """
 import pytest
 
@@ -26,8 +26,8 @@ from repro_torch.kernels import registry as PR  # noqa: E402
 from repro_torch.utils.hw import H100, ChipSpec  # noqa: E402
 
 REGIMES = (("xla", "torch"), ("pallas", "cuda"), ("loop_reference", "loop_reference"))
-#: the port's select_format candidates (the reference also scores bsr)
-PORT_FORMATS = ("csr", "jds", "ell", "sell", "hybrid", "dia", "matrix_free")
+#: the port's select_format candidates: every one the reference scores
+PORT_FORMATS = ("csr", "jds", "ell", "sell", "hybrid", "dia", "matrix_free", "bsr")
 HOST = RHW.ChipSpec("host_cpu", 1e12, 5e11, 20e9, 8 << 30, 0.0, 0, 32 << 20)
 REF_CHIPS = {"tpu": RHW.TPU_V5E, "cpu": HOST}
 
@@ -171,13 +171,13 @@ def test_torch_sell_form_pick_matches_reference(kind):
 
 
 @pytest.mark.parametrize("name", ("surrogate600", "surrogate3000", "powerlaw",
-                                  "exact3", "laplace48"))
+                                  "exact3", "laplace48", "blocksparse"))
 @pytest.mark.parametrize("family", ("tpu", "cpu"))
 @pytest.mark.parametrize("regime", REGIMES[:2], ids=("torch", "cuda"))
 def test_select_format_matches_reference(name, family, regime):
     r = ref_matrix(name)
     rb, pb = regime
-    want = RPM.select_format(r, chip=REF_CHIPS[family], backend=rb, allowed=PORT_FORMATS)
+    want = RPM.select_format(r, chip=REF_CHIPS[family], backend=rb)
     got = PM.select_format(to_port(r), chip=port_chip(REF_CHIPS[family]), backend=pb)
     assert got.format == want.format
     assert got.convert_kwargs == want.convert_kwargs
