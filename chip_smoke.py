@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py [--n 1201200] [--out chiprun_out/chip_smoke.json]
 
-Builds the nine hand-written CUDA kernels of ``src/repro_torch/csrc`` (eight
-sources, one ``nvcc`` each, in parallel) and drives the port's paths at the
-paper's size and, for the sparse-weight layer, at the widths of two models
-the repository configures:
+Builds the hand-written CUDA kernels of ``src/repro_torch/csrc`` -- one
+for each of the nine TPU kernels, two for the grouped GEMM (kernel 7: a
+wgmma + TMA kernel for bf16, a SIMT kernel for f32); eight sources, one
+``nvcc`` each, in parallel -- and drives the port's paths at the paper's
+size and, for the sparse-weight layer, at the widths of two models the
+repository configures:
 
-1. the card's name and power limit, and the kernel build time;
+1. the card's name and power limit, the kernel build time, and the
+   compiler's registers, shared memory and spills for the redesigned
+   kernels (grouped GEMM, CSR);
 2. every SpMV kernel at the main path's shapes against its plain PyTorch
    version on the same inputs (f64 and f32 accumulation, every value
    dtype), with CUDA-event times of the kernel, the plain version and the
@@ -43,7 +47,8 @@ the repository configures:
    with the dense cuBLAS and torch block-sparse yardsticks, and an
    unstructured 10 % SELL layer through kernel 5; (b) ``ops.grouped_gemm``
    at DeepSeek-V2-Lite expert width (64 experts, 2048 x 1408, a 2048-token
-   batch routed top-6) through the grouped GEMM kernel in f32 and bf16;
+   batch routed top-6) through the grouped GEMM's SIMT kernel in f32 and its
+   wgmma kernel in bf16 (per-path launch counters);
    (c) ``PlanConfig(format="bsr")`` and ``format="auto"`` on an 8192^2
    block-sparse matrix, every candidate timed (the fit of the ``h100`` bsr
    efficiency), and a matrix held out of that fit.
@@ -58,6 +63,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -165,6 +171,30 @@ def sell_triplets(F, s):
     return rows[keep], col[keep].astype(np.int64), val[keep]
 
 
+def ptxas_entries(build_log: str) -> list[dict]:
+    """Per kernel entry of an ``nvcc -Xptxas=-v`` log: the (mangled) name,
+    registers, static shared memory and spill bytes."""
+    ents, cur = [], None
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"entry": m.group(1), "registers": None, "smem": 0,
+                   "spill_stores": 0, "spill_loads": 0}
+            ents.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return ents
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
@@ -227,7 +257,7 @@ def main(argv=None) -> int:
             bell_fill_ratio, bell_row_nblocks, bell_scale, bell_spmm_arrays,
             bell_spmm_plain, bsr_to_bell)
         from repro_torch.kernels.moe_gemm import (
-            grouped_gemm_arrays, grouped_gemm_plain, plan_groups)
+            gemm_plan, grouped_gemm_arrays, grouped_gemm_plain, plan_groups)
         from repro_torch.models.sparse import (
             SparseLinear, advise_weight_format, magnitude_prune)
         from repro_torch.utils.hw import H100
@@ -255,10 +285,18 @@ def main(argv=None) -> int:
     out["build_s"] = time.perf_counter() - t0
     log(f"[build] {len(CB.SOURCES)} kernel libraries ({len(CB.KERNELS)} kernels) in "
         f"{out['build_s']:.1f} s (nvcc, sm_90a)")
-    for name in CB.SOURCES:
+    # every instantiation of the two redesigned kernels below, the rest here
+    ptxas_of = ("grouped_gemm", "csr_spmv")
+    for name in (nm for nm in CB.SOURCES if nm not in ptxas_of):
         regs = [ln.strip() for ln in CB.build_log(name).splitlines()
                 if "registers" in ln or "spill" in ln and "0 bytes" not in ln]
         log(f"[ptxas] {name}: " + ("; ".join(regs[:2]) if regs else "(cached build)"))
+    out["ptxas"] = {name: ptxas_entries(CB.build_log(name)) for name in ptxas_of}
+    for name, ents in out["ptxas"].items():
+        for ent in ents:
+            log(f"[ptxas] {name}: {ent['entry'][:72]}: {ent['registers']} registers, "
+                f"{ent['smem']} bytes smem, {ent['spill_stores']} / {ent['spill_loads']} "
+                "bytes spill stores / loads")
 
     # --- matrices, built once -------------------------------------------------
     t0 = time.perf_counter()
@@ -355,23 +393,34 @@ def main(argv=None) -> int:
     def csr_case(c, x, what, timed=False):
         rp, col, val, scale = map(on, (c.row_ptr, c.col_idx, c.val, c.scale))
         rid = on(csr.csr_row_ids(c))
-        lanes = csr_spmv.csr_lanes(c.n_rows, c.nnz)
-        k = lambda: csr_spmv.csr_spmv_arrays(rp, col, val, scale, x, lanes)  # noqa: E731
+        blocks = csr.csr_row_blocks(c)
+        k = lambda: csr_spmv.csr_spmv_arrays(rp, col, val, scale, x, blocks)  # noqa: E731
         p = lambda: csr_spmv.csr_spmv_plain(rp, col, val, scale, x, rid)  # noqa: E731
-        err = compare("csr_spmv", what, k(), p())
+        got = k()
+        err = compare("csr_spmv", what, got, p())
+        check(torch.equal(got, k()), f"csr_spmv {what}: two calls differ (no atomics: "
+                                     "the sums have a fixed order)")
         if timed:
-            acc = str(k().dtype).replace("torch.", "")
+            acc = str(got.dtype).replace("torch.", "")
+            # cuSPARSE on f64 values (the kernel's first yardstick) and on
+            # the kernel's own bytes: f32 values, f32 x
             lib = torch.sparse_csr_tensor(rp.long(), col.long(), val.double(),
                                           size=c.shape)
-            xl = x.double()
+            lib32 = torch.sparse_csr_tensor(rp.long(), col.long(), val.float(),
+                                            size=c.shape)
+            xl, xf = x.double(), x.float()
             b, by = bound_ms(H100, nbytes(rp, col, val, scale, x)
                              + c.n_rows * x.element_size(), 2 * c.nnz, acc)
+            nb = blocks.n_blocks
             record("csr_spmv", route="cuda", source="src/repro_torch/csrc/csr_spmv.cu",
                     replaces="src/repro/kernels/csr_spmv.py:73", max_abs_err=err,
                     ms=time_ms(torch, k), plain_ms=time_ms(torch, p), bound_ms=b,
                     bound_by=by, library_ms=time_ms(torch, lambda: lib @ xl),
-                    shape=f"full surrogate, {c.nnz} nnz, {lanes} lanes/row, "
-                          "val f32, x f64")
+                    library_f32_ms=time_ms(torch, lambda: lib32 @ xf),
+                    row_blocks=nb,
+                    shape=f"full surrogate, {c.nnz} nnz, {nb} row blocks of <= "
+                          f"{csr_spmv.CSR_BUDGET} nnz, val f32, x f64 (library: "
+                          "cuSPARSE f64 val + f64 x; library_f32: f32 val + f32 x)")
 
     csr_case(m, x64, "full surrogate f32 val, f64 x", timed=True)
     for vd in VALUE_DTYPES:
@@ -892,16 +941,23 @@ def main(argv=None) -> int:
     counts_e = np.bincount(eot, minlength=E)
     te_d, inv_d = on(torch.from_numpy(te)), on(torch.from_numpy(inv.astype(np.int64)))
     sample = np.random.default_rng(13).choice(T, 256, replace=False)
-    moe, main_launches = {}, 0
+    moe = {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).replace("torch.", "")
         Xg, Wg = Xd.to(dt), Wd.to(dt)
-        before = CB.launch_counts()["grouped_gemm"]
+        # f32 runs the SIMT kernel, bf16 the wgmma kernel (gemm_plan's rule)
+        path = gemm_plan(bt, Dm, Fe, dt, dt)[0]
+        check(path == ("simt" if dt == torch.float32 else "wgmma"),
+              f"grouped_gemm {name}: gemm_plan picks {path}")
+        CB.reset_launch_counts()
         Y = KOPS.grouped_gemm(Xg, eot, Wg, bt=bt)
-        check(CB.launch_counts()["grouped_gemm"] == before + 1,
-              f"grouped_gemm {name}: kernel not launched once by ops.grouped_gemm")
-        main_launches += 1
-        launches_g = 1
+        counts_g = CB.launch_counts()
+        want_counts = {"grouped_gemm": 1, "grouped_gemm_simt": int(path == "simt"),
+                       "grouped_gemm_wgmma": int(path == "wgmma")}
+        check(all(counts_g[k_] == v for k_, v in want_counts.items()),
+              f"grouped_gemm {name}: ops.grouped_gemm launched "
+              f"{ {k_: counts_g[k_] for k_ in want_counts} }, expected {want_counts}")
+        launches_g = counts_g[f"grouped_gemm_{path}"]
         Xp = torch.zeros((T_pad, Dm), dtype=dt, device=dev).index_copy_(0, inv_d, Xg)
         k = lambda: grouped_gemm_arrays(te_d, Xp, Wg, bt=bt)  # noqa: E731
         p = lambda: grouped_gemm_plain(te_d, Xp, Wg, bt)  # noqa: E731
@@ -931,8 +987,8 @@ def main(argv=None) -> int:
         lib = lambda: [torch.matmul(Xs[a:b], Wg[e]) for a, b, e in groups]  # noqa: E731
         row = {"ms": time_ms(torch, k), "plain_ms": time_ms(torch, p, reps=5),
                "library_ms": time_ms(torch, lib), "library": "torch.matmul per expert group",
-               "T": T, "T_pad": T_pad, "launches": launches_g, "per_token_rel_err": rel_tok,
-               "max_abs_err": err}
+               "T": T, "T_pad": T_pad, "path": path, "launches": launches_g,
+               "per_token_rel_err": rel_tok, "max_abs_err": err}
         if dt == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
             offs = torch.from_numpy(np.cumsum(counts_e).astype(np.int32)).to(dev)
             try:
@@ -946,7 +1002,9 @@ def main(argv=None) -> int:
         row["bound_ms"], row["bound_ms_at_measured_bw"], row["bound_by"] = bytes_bound(
             nby, 2 * T_pad * Dm * Fe, peak)
         moe[name] = row
-        log(f"[moe] {name}: T={T} routed rows -> T_pad={T_pad}; kernel {row['ms']:.4f} ms, "
+        log(f"[moe] {name}: T={T} routed rows -> T_pad={T_pad}; {path} kernel "
+            f"{row['ms']:.4f} ms ({2 * T_pad * Dm * Fe / row['ms'] / 1e9:.1f} TFLOP/s at "
+            f"T_pad), "
             f"plain {row['plain_ms']:.4f}, per-group torch.matmul {row['library_ms']:.4f}"
             + (f", torch._grouped_mm {row['grouped_mm_ms']:.4f}" if "grouped_mm_ms" in row
                else "") + f"; bound {row['bound_ms']:.4f} by {row['bound_by']}; per-token "
@@ -956,10 +1014,23 @@ def main(argv=None) -> int:
                    replaces="src/repro/kernels/moe_gemm.py:59", max_abs_err=err,
                    ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                    bound_by=row["bound_by"], library_ms=row["library_ms"],
-                   shape=f"deepseek-v2-lite experts E={E} D={Dm} F={Fe}, T_pad={T_pad} f32 "
-                         "(library: torch.matmul per expert group, 64 calls)")
+                   launches=launches_g,
+                   shape=f"deepseek-v2-lite experts E={E} D={Dm} F={Fe}, T_pad={T_pad} f32, "
+                         "SIMT kernel (library: torch.matmul per expert group, 64 calls)")
+        else:
+            lib_name = "torch._grouped_mm" if "grouped_mm_ms" in row else \
+                "torch.matmul per expert group"
+            record("grouped_gemm_wgmma", route="cuda",
+                   source="src/repro_torch/csrc/grouped_gemm.cu",
+                   replaces="src/repro/kernels/moe_gemm.py:59", max_abs_err=err,
+                   ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                   bound_by=row["bound_by"],
+                   library_ms=row.get("grouped_mm_ms", row["library_ms"]),
+                   launches=launches_g,
+                   shape=f"deepseek-v2-lite experts E={E} D={Dm} F={Fe}, T_pad={T_pad} bf16, "
+                         f"wgmma + TMA kernel (library: {lib_name} over the T={T} routed "
+                         "rows, 25 % fewer than T_pad)")
         del Xg, Wg, Xp, Xs, Y
-    record("grouped_gemm", launches=main_launches)   # the ops.grouped_gemm calls
     out["moe"] = moe
     del Xd, Wd
 
@@ -1005,10 +1076,21 @@ def main(argv=None) -> int:
         f"{held_m['pick']}, fastest {held_m['fastest']}, predicted / measured of the pick "
         f"{held_m['candidates'][held_m['pick']]['model_error']:.3f}")
     del bs, plan_b, plan_o
+    # kernel 3 on every matrix it ran at full size: the surrogate (phase 2c),
+    # the csr plans of phases 7 and 9c
+    csr_ms = {mname: r["candidates"]["csr"]["measured_ms"]
+              for mname, r in list(model.items()) + list(bsr_model.items())
+              if "csr" in r["candidates"]}
+    out["csr_plans_ms"] = csr_ms
+    kr3 = rows["csr_spmv"]
+    log(f"[csr] kernel 3 on the surrogate {kr3['ms']:.4f} ms (cuSPARSE f64 values "
+        f"{kr3['library_ms']:.4f}, f32 values + f32 x {kr3['library_f32_ms']:.4f}; bound "
+        f"{kr3['bound_ms']:.4f}); csr plans: " + "; ".join(
+            f"{k_} {v:.4f} ms" for k_, v in csr_ms.items()))
 
     # --- report -----------------------------------------------------------------
     names = ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv", "sell_spmm", "stream_triad",
-             "gather_scp", "bell_spmm", "grouped_gemm")
+             "gather_scp", "bell_spmm", "grouped_gemm", "grouped_gemm_wgmma")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: rows[n].get(k) for k in keys} for n in names]
@@ -1027,6 +1109,8 @@ def main(argv=None) -> int:
     Path(args.out).write_text(json.dumps(out, indent=1))
     for kr in out["kernels"]:
         lib_ms = "none" if kr["library_ms"] is None else f"{kr['library_ms']:.4f}"
+        if "library_f32_ms" in kr:
+            lib_ms += f", f32 {kr['library_f32_ms']:.4f}"
         log(f"[kernel] {kr['name']:12s} {kr['ms']:.4f} ms (plain {kr['plain_ms']:.4f}, "
             f"library {lib_ms}, bound {kr['bound_ms']:.4f} by {kr['bound_by']}, "
             f"{kr['bound_ms_at_measured_bw']:.4f} at the measured triad rate); "

@@ -444,6 +444,10 @@ def balance_of(fmt_obj, am: AccessModel | None = None, backend: str = "torch",
 #: is fitted the same way on ``block_sparse_dense(8192, 8192, (8, 128),
 #: 0.25, seed=4)`` with an f64 x (``chip_smoke.py`` phase 9, BELL kernel,
 #: 3.067 TB/s measured; chip run 4 of PR 13 on the same card and limit).
+#: csr is refitted for the row-block CSR kernel: 0.645, the ``fitted_h100``
+#: geomean of ``chip_smoke.py`` phase 7 on the same card and limit (3.063
+#: TB/s measured; surrogate 0.705, laplacian 1.202, power law 0.318), the
+#: run PERF.md section 6 records as the first of that kernel.
 EXEC_EFFICIENCY = {
     "tpu": {
         "csr": 0.10, "coo": 0.08, "jds": 0.15, "ell": 0.90,
@@ -456,7 +460,7 @@ EXEC_EFFICIENCY = {
         "matrix_free": 0.90,
     },
     "h100": {
-        "csr": 0.417, "jds": 0.201, "ell": 0.280,
+        "csr": 0.645, "jds": 0.201, "ell": 0.280,
         "sell": 0.330, "hybrid": 0.421, "dia": 0.619,
         "matrix_free": 0.320, "bsr": 0.502,
     },

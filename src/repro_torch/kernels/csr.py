@@ -16,6 +16,7 @@ from .cache import cached, register_stat, spmm_by_columns
 from .registry import CompiledKernel, on_device, register_kernel
 
 register_stat("csr_row_ids")
+register_stat("csr_row_blocks")
 
 
 def csr_row_ids(m: CSR) -> torch.Tensor:
@@ -27,6 +28,13 @@ def csr_row_ids(m: CSR) -> torch.Tensor:
             np.repeat(np.arange(len(rp) - 1, dtype=np.int32), np.diff(rp)))
 
     return cached(m, "_row_ids", "csr_row_ids", build)
+
+
+def csr_row_blocks(m: CSR) -> KP.RowBlocks:
+    """The CUDA kernel's row blocks (``csr_spmv.RowBlocks``), host-built and
+    checked once per container."""
+    return cached(m, "_row_blocks", "csr_row_blocks",
+                  lambda: KP.csr_row_blocks(_np(m.row_ptr)))
 
 
 def csr_spmm_plain(row_ptr, col_idx, val, scale, X, row_ids):
@@ -95,10 +103,11 @@ def _check_indices(m: CSR) -> None:
 
 
 @register_kernel("csr", "spmv", "cuda",
-                 description="sub-warp per row, shuffle reduction")
+                 description="row blocks balanced by nonzeros (CSR-stream / CSR-vector)")
 def _build_spmv_cuda(m: CSR, ctx) -> CompiledKernel:
     _check_indices(m)
     rp, col, val, scale = on_device(ctx, m.row_ptr, m.col_idx, m.val, m.scale)
-    lanes = KP.csr_lanes(m.n_rows, m.nnz)
+    blocks = csr_row_blocks(m)
+    blocks.on(rp.device)  # to the card at plan compile, not on the first SpMV
     return CompiledKernel(
-        lambda x: KP.csr_spmv_arrays(rp, col, val, scale, x, lanes), "cuda")
+        lambda x: KP.csr_spmv_arrays(rp, col, val, scale, x, blocks), "cuda")

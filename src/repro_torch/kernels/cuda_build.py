@@ -12,7 +12,8 @@ loaded as it is.
 
 Every wrapper adds one to its entry of the launch counters where it
 launches its kernel, and nowhere else, so a run can show that its main path
-went through the kernels.
+went through the kernels.  The grouped GEMM also counts the path that ran
+(``PATH_COUNTERS``).
 """
 from __future__ import annotations
 
@@ -38,6 +39,9 @@ SOURCES = {"sell_spmv": ("sell_spmv",), "dia_spmv": ("dia_spmv",),
            "bell_spmm": ("bell_spmm",), "grouped_gemm": ("grouped_gemm",)}
 KERNELS = tuple(k for names in SOURCES.values() for k in names)
 SOURCE_OF = {k: src for src, names in SOURCES.items() for k in names}
+#: kernels whose entry point holds several CUDA kernels: a launch counts
+#: under the entry point and under the path that ran
+PATH_COUNTERS = ("grouped_gemm_wgmma", "grouped_gemm_simt")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               # separate multiply and add, as the plain PyTorch versions do
@@ -47,7 +51,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 VALUE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
                torch.float16: 3, torch.float8_e4m3fn: 4, torch.int8: 5}
 
-_LAUNCHES = {name: 0 for name in KERNELS}
+_LAUNCHES = {name: 0 for name in KERNELS + PATH_COUNTERS}
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict[str, object] = {}
 _LOCK = threading.Lock()

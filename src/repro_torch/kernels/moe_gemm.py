@@ -9,7 +9,9 @@ rows, and ``W (E, D, F)``; the output is ``result_type(X, W)``.  Padding
 rows are zero rows, multiplied like any other and dropped on unsort, so
 the padded ``Yp`` equals the reference's.  ``grouped_gemm_arrays``
 launches ``csrc/grouped_gemm.cu`` on CUDA tensors and runs
-``grouped_gemm_plain`` on CPU tensors.
+``grouped_gemm_plain`` on CPU tensors.  The source holds two kernels;
+``gemm_plan`` picks one by rule: the wgmma + TMA kernel on the bf16
+tensor cores, or the register-tiled SIMT kernel on the f32 pipes.
 """
 from __future__ import annotations
 
@@ -21,12 +23,17 @@ import torch
 from . import cuda_build as CB
 
 NAME = "grouped_gemm"
-_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4 + [ctypes.c_int64] + \
+    [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 #: input / output dtypes of the kernel and their codes in grouped_gemm.cu
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the two kernels of grouped_gemm.cu (GemmPath); each launch is counted
+#: under NAME and under ``grouped_gemm_<path>``
+PATHS = {"simt": 0, "wgmma": 1}
+#: grouped_gemm.cu's kTensorMapError: a return code at or above it is a
+#: failed cuTensorMapEncodeTiled, the CUresult added
+_TENSOR_MAP_ERROR = 1 << 20
 
 
 def plan_groups(expert_of_token: np.ndarray, n_experts: int, bt: int):
@@ -62,16 +69,32 @@ def grouped_gemm_plain(tile_expert, X, W, bt: int):
 
 
 def gemm_rows(bt: int) -> int:
-    """Rows of one CUDA block's output tile: the largest divisor of ``bt``
-    up to 64, so that a tile never straddles two experts."""
+    """Rows of one output sub-tile: the largest divisor of ``bt`` up to 64,
+    so that a tile never straddles two experts."""
     return max(d for d in range(1, min(bt, 64) + 1) if bt % d == 0)
+
+
+def gemm_plan(bt: int, D: int, F: int, x_dtype, w_dtype) -> tuple[str, int]:
+    """``(path, bm)``: which kernel of grouped_gemm.cu runs, and the rows of
+    its CTA tile (both kernels take 128 columns of F a CTA).  The wgmma kernel takes bf16 x bf16 with ``bt % 64 == 0`` (its
+    tiles are 64 or 128 rows of one expert) and ``D % 8 == 0``, ``F % 8 ==
+    0`` (TMA needs 16-byte row strides), at 128 rows where ``bt % 128 ==
+    0``.  Everything else runs the SIMT kernel, whose CTA covers two
+    consecutive ``gemm_rows`` sub-tiles of one expert where ``bt`` holds
+    them and 128 rows do, else one."""
+    if x_dtype == w_dtype == torch.bfloat16 and bt % 64 == 0 and D % 8 == 0 \
+            and F % 8 == 0:
+        return "wgmma", (128 if bt % 128 == 0 else 64)
+    rows = gemm_rows(bt)
+    bm = 2 * rows if bt % (2 * rows) == 0 and 2 * rows <= 128 else rows
+    return "simt", bm
 
 
 def grouped_gemm_arrays(tile_expert, X, W, *, bt: int = 128, bf: int | None = None):
     """Grouped GEMM over a sorted, group-padded ``X (T, D)``: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors.  ``bf``
-    (default F) must divide F, the reference's contract; the kernel tiles F
-    by its own 64 columns."""
+    kernel ``gemm_plan`` picks for CUDA tensors, the plain version for CPU
+    tensors.  ``bf`` (default F) must divide F, the reference's contract;
+    the kernels tile F by their own 128 columns."""
     T, D = X.shape
     E, D2, F = W.shape
     bf = bf or F
@@ -93,14 +116,18 @@ def grouped_gemm_arrays(tile_expert, X, W, *, bt: int = 128, bf: int | None = No
     Y = torch.empty((T, F), dtype=odt, device=dev)
     if T == 0 or F == 0:
         return Y
-    bm = gemm_rows(bt)
+    path, bm = gemm_plan(bt, D, F, X.dtype, W.dtype)
     fn = CB.kernel_function(NAME, _ARGTYPES)
     with torch.cuda.device(dev):
-        rc = fn(_CODES[X.dtype], _CODES[W.dtype], _CODES[odt], CB.ptr(tile_expert),
-                CB.ptr(X), CB.ptr(W), CB.ptr(Y), T, D, F, E, bt, bm,
+        rc = fn(PATHS[path], _CODES[X.dtype], _CODES[W.dtype], _CODES[odt],
+                CB.ptr(tile_expert), CB.ptr(X), CB.ptr(W), CB.ptr(Y), T, D, F, E, bt, bm,
                 CB.stream_handle(dev))
+    if rc >= _TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{NAME}: cuTensorMapEncodeTiled failed with CUresult "
+                           f"{rc - _TENSOR_MAP_ERROR}")
     CB.raise_on_error(NAME, rc)
     CB.count_launch(NAME)
+    CB.count_launch(f"{NAME}_{path}")
     return Y
 
 

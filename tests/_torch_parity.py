@@ -51,6 +51,30 @@ def ref_matrix(name: str):
     return _MATS[name]
 
 
+_RAGGED: dict = {}
+
+
+def ragged_csr_arrays():
+    """``(row_ptr, col_idx, val, shape)`` (int32, int32, f64) of a CSR
+    matrix with empty rows (a run of them included) and rows longer than
+    the CUDA CSR kernel's 1024-nonzero row-block budget (one exactly at
+    it), beside short rows.  Built once per process."""
+    if "arrays" not in _RAGGED:
+        rng = np.random.default_rng(21)
+        n, ncols = 3000, 6000
+        lens = rng.integers(0, 20, n)
+        lens[rng.choice(n, 300, replace=False)] = 0
+        lens[1000:1300] = 0
+        lens[[7, 2000, 2999]] = [2049, 5000, 3000]
+        lens[[500, 501]] = [1024, 1025]
+        rp = np.zeros(n + 1, np.int64)
+        np.cumsum(lens, out=rp[1:])
+        col = np.concatenate([np.sort(rng.choice(ncols, k, replace=False)) for k in lens])
+        _RAGGED["arrays"] = (rp.astype(np.int32), col.astype(np.int32),
+                             rng.standard_normal(col.size), (n, ncols))
+    return _RAGGED["arrays"]
+
+
 def port_matrix(name: str):
     """The port's CSR of the same named matrix, from its own generators."""
     from repro_torch.core import formats as PF

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import port_matrix
+from _torch_parity import port_matrix, ragged_csr_arrays
 from repro_torch.core import formats as PF
 from repro_torch.core.plan import SpMVPlan
 from repro_torch.core.planconfig import PlanConfig
@@ -177,11 +177,16 @@ def test_cuda_grouped_gemm_matches_plain_on_the_card(cuda_device, bt, E, dtypes)
     X = torch.from_numpy(rng.standard_normal((T, D))).to(cuda_device, dt[xd])
     W = torch.from_numpy(rng.standard_normal((E, D, F))).to(cuda_device, dt[wd])
     eot = rng.integers(0, E, T)
-    before = CB.launch_counts()["grouped_gemm"]
+    # D = 100 is no multiple of 8, so every case runs the SIMT kernel
+    assert KM.gemm_plan(bt, D, F, X.dtype, W.dtype)[0] == "simt"
+    before = CB.launch_counts()
     got = ops.grouped_gemm(X, eot, W, bt=bt)
     want = ops.grouped_gemm(X, eot, W, bt=bt, backend="torch")
     torch.cuda.synchronize()
-    assert CB.launch_counts()["grouped_gemm"] == before + 1
+    after = CB.launch_counts()
+    assert after["grouped_gemm"] == before["grouped_gemm"] + 1
+    assert after["grouped_gemm_simt"] == before["grouped_gemm_simt"] + 1
+    assert after["grouped_gemm_wgmma"] == before["grouped_gemm_wgmma"]
     assert got.dtype == want.dtype == torch.promote_types(dt[xd], dt[wd])
     tol = 1e-2 if got.dtype == torch.bfloat16 else 1e-5
     assert float((got.double() - want.double()).abs().max() / want.double().abs().max()) <= tol
@@ -192,3 +197,173 @@ def test_cuda_grouped_gemm_matches_plain_on_the_card(cuda_device, bt, E, dtypes)
     Xp[torch.from_numpy(inv).long().to(cuda_device)] = X
     yp, yq = KM.grouped_gemm_arrays(te, Xp, W, bt=bt), KM.grouped_gemm_plain(te, Xp, W, bt)
     assert float((yp.double() - yq.double()).abs().max() / yq.double().abs().max()) <= tol
+
+
+def _grouped_case(cuda_device, bt, E, D, F, xd, wd, seed, experts=None, T=300):
+    """Inputs of one grouped-GEMM case on the card, routed over ``experts``
+    (default all E)."""
+    rng = np.random.default_rng(seed)
+    X = torch.from_numpy(rng.standard_normal((T, D))).to(cuda_device, xd)
+    W = torch.from_numpy(rng.standard_normal((E, D, F))).to(cuda_device, wd)
+    eot = rng.choice(np.arange(E) if experts is None else np.asarray(experts), T)
+    return X, W, eot
+
+
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt,E,D,F,experts", [
+    (128, 4, 256, 256, None),
+    (64, 4, 256, 256, None),          # 64-row tiles, one consumer warpgroup
+    (128, 3, 200, 72, None),          # ragged D and F tile edges (TMA zero fill)
+    (64, 3, 200, 72, None),
+    (128, 5, 136, 200, (0, 2, 4)),    # experts 1 and 3 get no token
+    (128, 4, 128, 128, None),         # a 2-stage K (the ring is 6 deep)
+    (256, 2, 1024, 384, None),        # 128-row tiles, two per group
+], ids=str)
+def test_cuda_grouped_gemm_wgmma_path_on_the_card(cuda_device, bt, E, D, F, experts):
+    from repro_torch.kernels import moe_gemm as KM
+    from repro_torch.kernels import ops
+    X, W, eot = _grouped_case(cuda_device, bt, E, D, F, torch.bfloat16, torch.bfloat16,
+                              bt + D + F, experts)
+    assert KM.gemm_plan(bt, D, F, X.dtype, W.dtype)[0] == "wgmma"
+    before = CB.launch_counts()
+    got = ops.grouped_gemm(X, eot, W, bt=bt)
+    torch.cuda.synchronize()
+    after = CB.launch_counts()
+    assert after["grouped_gemm"] == before["grouped_gemm"] + 1
+    assert after["grouped_gemm_wgmma"] == before["grouped_gemm_wgmma"] + 1
+    assert after["grouped_gemm_simt"] == before["grouped_gemm_simt"]
+    want = ops.grouped_gemm(X, eot, W, bt=bt, backend="torch")
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    # bf16 output: each side rounds its f32 sum once
+    assert _rel(got, want) <= 1e-2
+    exact = torch.stack([X[t].double() @ W[int(e)].double() for t, e in enumerate(eot)])
+    assert _rel(got, exact) <= 1e-2
+    # the padded product, padding rows included, against the plain version
+    _, inv, te, T_pad = KM.plan_groups(eot, E, bt)
+    te = torch.from_numpy(te).to(cuda_device)
+    Xp = torch.zeros((T_pad, D), dtype=X.dtype, device=cuda_device)
+    Xp[torch.from_numpy(inv).long().to(cuda_device)] = X
+    yp = KM.grouped_gemm_arrays(te, Xp, W, bt=bt)
+    assert _rel(yp, KM.grouped_gemm_plain(te, Xp, W, bt)) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", ("f32", "bf16", "f32-bf16", "bf16-f32"))
+@pytest.mark.parametrize("bt,D,F", [(128, 256, 256), (200, 101, 70), (7, 33, 5),
+                                    (64, 96, 130), (256, 2048, 136)], ids=str)
+def test_cuda_grouped_gemm_tiles_and_edges_on_the_card(cuda_device, bt, D, F, dtypes):
+    """Every register-tile height of the SIMT kernel (bm = 128, 100, 7, 64),
+    its 16-byte and element paths (D % 4, F % 4), and the path gemm_plan
+    names for each case."""
+    from repro_torch.kernels import moe_gemm as KM
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    xd, wd = (dtypes.split("-") * 2)[:2]
+    X, W, eot = _grouped_case(cuda_device, bt, 3, D, F, dt[xd], dt[wd], bt + D, T=2 * bt + 5)
+    _, inv, te, T_pad = KM.plan_groups(eot, 3, bt)
+    te = torch.from_numpy(te).to(cuda_device)
+    Xp = torch.zeros((T_pad, D), dtype=X.dtype, device=cuda_device)
+    Xp[torch.from_numpy(inv).long().to(cuda_device)] = X
+    path = KM.gemm_plan(bt, D, F, X.dtype, W.dtype)[0]
+    before = CB.launch_counts()[f"grouped_gemm_{path}"]
+    got = KM.grouped_gemm_arrays(te, Xp, W, bt=bt)
+    want = KM.grouped_gemm_plain(te, Xp, W, bt)
+    torch.cuda.synchronize()
+    assert CB.launch_counts()[f"grouped_gemm_{path}"] == before + 1
+    assert got.dtype == want.dtype
+    assert _rel(got, want) <= (1e-2 if got.dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_cuda_grouped_gemm_bad_expert_id_gives_nan_rows(cuda_device, dtype):
+    from repro_torch.kernels import moe_gemm as KM
+    rng = np.random.default_rng(5)
+    X = torch.from_numpy(rng.standard_normal((256, 128))).to(cuda_device, dtype)
+    W = torch.from_numpy(rng.standard_normal((2, 128, 64))).to(cuda_device, dtype)
+    te = torch.tensor([1, 7], dtype=torch.int32, device=cuda_device)   # expert 7 of 2
+    y = KM.grouped_gemm_arrays(te, X, W, bt=128)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y[:128]).all() and torch.isnan(y[128:]).all()
+    assert _rel(y[:128], X[:128].double() @ W[1].double()) <= 1e-2
+
+
+# --- kernel 3, CSR SpMV on row blocks ------------------------------------------
+
+
+def _csr(name):
+    from repro_torch.core.matrices import power_law_rows
+    if name == "ragged":
+        rp, col, val, shape = ragged_csr_arrays()
+        return PF.CSR(*map(torch.from_numpy, (rp, col, val)), shape)
+    if name == "power_law":
+        return power_law_rows(20000, 20000, mean_nnz=10.0, seed=3, max_nnz=192)
+    return port_matrix(name)
+
+
+#: (value dtype, x dtype): f64 values take an f64 x (the acc_dtype rule)
+_CSR_CASES = [("f64", torch.float64)] + [
+    (vd, xdt) for vd in ("f32", "bf16", "f16", "fp8_e4m3", "int8")
+    for xdt in (torch.float64, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vd,xdt", _CSR_CASES, ids=str)
+@pytest.mark.parametrize("name", ("ragged", "power_law", "surrogate3000", "blocksparse"))
+def test_cuda_csr_row_blocks_on_the_card(cuda_device, name, vd, xdt):
+    from repro_torch.kernels import csr as KC
+    from repro_torch.kernels import csr_spmv as KP
+    m = PF.with_value_dtype(_csr(name), vd)
+    rp, col, val = (t.to(cuda_device) for t in (m.row_ptr, m.col_idx, m.val))
+    scale = None if m.scale is None else m.scale.to(cuda_device)
+    blocks = KC.csr_row_blocks(m)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(m.shape[1])).to(
+        cuda_device, xdt)
+    before = CB.launch_counts()["csr_spmv"]
+    y1 = KP.csr_spmv_arrays(rp, col, val, scale, x, blocks)
+    y2 = KP.csr_spmv_arrays(rp, col, val, scale, x, blocks)
+    y3 = KP.csr_spmv_arrays(rp, col, val, scale, x)   # the partition computed here
+    want = KP.csr_spmv_plain(rp, col, val, scale, x)
+    torch.cuda.synchronize()
+    assert CB.launch_counts()["csr_spmv"] == before + 3
+    # no atomics: the same bits on every call
+    assert torch.equal(y1, y2) and torch.equal(y1, y3)
+    assert y1.dtype == want.dtype and torch.isfinite(y1).all()
+    tol = 1e-12 if y1.dtype == torch.float64 else 1e-5
+    assert _rel(y1, want) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_csr_row_blocks_over_the_budget_give_nan_rows(cuda_device):
+    from repro_torch.kernels import csr_spmv as KP
+    m = port_matrix("surrogate3000")
+    rp, col, val = (t.to(cuda_device) for t in (m.row_ptr, m.col_idx, m.val))
+    x = torch.ones(m.shape[1], dtype=torch.float64, device=cuda_device)
+    n = m.shape[0]
+    # the partition of an empty matrix with as many rows: blocks of 1024
+    # rows, each holding far more than the budget of nonzeros here
+    blocks = KP.csr_row_blocks(np.zeros(n + 1, np.int32))
+    assert blocks.n_blocks == -(-n // KP.CSR_BUDGET)
+    y = KP.csr_spmv_arrays(rp, col, val, None, x, blocks)
+    torch.cuda.synchronize()
+    assert m.nnz > KP.CSR_BUDGET and torch.isnan(y).all()
+
+
+@pytest.mark.cuda
+def test_cuda_csr_refuses_a_partition_it_did_not_check(cuda_device):
+    from repro_torch.kernels import csr_spmv as KP
+    m = port_matrix("surrogate3000")
+    rp, col, val = (t.to(cuda_device) for t in (m.row_ptr, m.col_idx, m.val))
+    x = torch.ones(m.shape[1], dtype=torch.float64, device=cuda_device)
+    before = CB.launch_counts()["csr_spmv"]
+    # a partition with a gap (rows 10.. in no block) never reaches the kernel
+    with pytest.raises(TypeError, match="RowBlocks"):
+        KP.csr_spmv_arrays(rp, col, val, None, x,
+                           torch.tensor([0, 10], dtype=torch.int32, device=cuda_device))
+    # nor does the partition of a matrix with other rows
+    with pytest.raises(ValueError, match="rows"):
+        KP.csr_spmv_arrays(rp, col, val, None, x, KP.csr_row_blocks(m.row_ptr[:11]))
+    assert CB.launch_counts()["csr_spmv"] == before

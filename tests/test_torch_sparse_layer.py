@@ -255,6 +255,47 @@ def test_gemm_rows_never_straddle_a_tile(bt, rows):
     assert PMOE.gemm_rows(bt) == rows and bt % rows == 0 and rows <= 64
 
 
+BF, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("x,w,bt,D,F,plan", [
+    (BF, BF, 128, 2048, 1408, ("wgmma", 128)),   # DeepSeek-V2-Lite experts
+    (BF, BF, 64, 2048, 1408, ("wgmma", 64)),     # bt % 128 != 0: 64-row tiles
+    (BF, BF, 256, 200, 72, ("wgmma", 128)),      # ragged tile edges, 16-byte rows
+    (BF, BF, 192, 128, 8, ("wgmma", 64)),
+    (BF, BF, 128, 100, 72, ("simt", 128)),       # D % 8 != 0: no tensor map
+    (BF, BF, 128, 2048, 1404, ("simt", 128)),    # F % 8 != 0
+    (BF, BF, 96, 2048, 1408, ("simt", 96)),      # bt % 64 != 0
+    (BF, BF, 32, 64, 64, ("simt", 32)),
+    (F32, F32, 128, 2048, 1408, ("simt", 128)),  # f32: the f32 pipes
+    (F32, BF, 128, 2048, 1408, ("simt", 128)),   # mixed: widened on the way in
+    (BF, F32, 64, 2048, 1408, ("simt", 64)),
+    (F32, F32, 8, 48, 40, ("simt", 8)),
+    (F32, F32, 200, 48, 40, ("simt", 100)),      # two 50-row sub-tiles
+    (F32, F32, 7, 48, 40, ("simt", 7)),
+    (F32, F32, 256, 48, 40, ("simt", 128)),
+])
+def test_gemm_plan_picks_the_path_and_tile(x, w, bt, D, F, plan):
+    got = PMOE.gemm_plan(bt, D, F, x, w)
+    assert got == plan
+    path, bm = got
+    # a CTA never straddles two experts, and covers one or two gemm_rows sub-tiles
+    assert bt % bm == 0 and bm <= 128
+    assert bm in (PMOE.gemm_rows(bt), 2 * PMOE.gemm_rows(bt)) or path == "wgmma"
+    assert path == "simt" or (x == w == BF and bm % 64 == 0 and D % 8 == 0 and F % 8 == 0)
+
+
+def test_grouped_gemm_path_counters_rise_only_on_the_card():
+    assert set(CB.PATH_COUNTERS) == {f"grouped_gemm_{p}" for p in PMOE.PATHS}
+    assert set(CB.PATH_COUNTERS) <= set(CB.launch_counts())
+    te = torch.zeros(2, dtype=torch.int32)
+    X, W = torch.ones(256, 16, dtype=BF), torch.ones(1, 16, 8, dtype=BF)
+    assert PMOE.gemm_plan(128, 16, 8, X.dtype, W.dtype)[0] == "wgmma"
+    before = CB.launch_counts()
+    y = PMOE.grouped_gemm_arrays(te, X, W, bt=128)
+    assert CB.launch_counts() == before and y.dtype == BF and float(y[0, 0]) == 16.0
+
+
 def test_expert_weights_take_bf16_bits():
     import ml_dtypes
     W = np.random.default_rng(5).standard_normal((2, 3, 4)).astype(ml_dtypes.bfloat16)
