@@ -11,8 +11,8 @@ size and, for the sparse-weight layer, at the widths of two models the
 repository configures:
 
 1. the card's name and power limit, the kernel build time, and the
-   compiler's registers, shared memory and spills for the redesigned
-   kernels (grouped GEMM, CSR);
+   compiler's registers, shared memory and spills for every instantiation
+   of the kernels redesigned last (SELL SpMM, BELL SpMM);
 2. every SpMV kernel at the main path's shapes against its plain PyTorch
    version on the same inputs (f64 and f32 accumulation, every value
    dtype), with CUDA-event times of the kernel, the plain version and the
@@ -36,15 +36,17 @@ repository configures:
    efficiency per format; a plan priced for another chip must run the same
    kernel;
 8. batched SpMV: ``plan.spmm(X)`` of the surrogate's SELL plan through the
-   SELL SpMM kernel at K = 1 .. 64, against its plain version, with the
-   cuSPARSE SpMM yardstick, the bound and ``select_batch_width``'s curve;
-   then the kernel against its plain version for every value dtype at
-   K = 16, with f64 and f32 X;
+   SELL SpMM kernel (chunks in the plan's cached original-row schedule) at
+   K = 1 .. 64, against its plain version, two calls bit-equal, with the
+   plain and cuSPARSE SpMM times, the bound, the X gather bytes and their
+   rate, and ``select_batch_width``'s curve; then the kernel against its
+   plain version for every value dtype at K = 16, with f64 and f32 X;
 9. sparse weights: (a) ``SparseLinear`` at Gemma-7B FFN width (the
    (24576, 3072) gate weight pruned to 25 % in (8, 128) blocks, advised and
    stored as BSR) at decode batches 1, 8 and 64 through the BELL kernel,
    against dense ``x @ W.T``, every value dtype against the plain version,
-   with the dense cuBLAS and torch block-sparse yardsticks, and an
+   the decode (B = 1) and wide (B = 8, 64) paths counted apart, two calls
+   bit-equal, with the dense cuBLAS and torch block-sparse yardsticks, and an
    unstructured 10 % SELL layer through kernel 5; (b) ``ops.grouped_gemm``
    at DeepSeek-V2-Lite expert width (64 experts, 2048 x 1408, a 2048-token
    batch routed top-6) through the grouped GEMM's SIMT kernel in f32 and its
@@ -254,7 +256,7 @@ def main(argv=None) -> int:
         from repro_torch.kernels import sell, sell_spmv
         from repro_torch.interop import expert_weights
         from repro_torch.kernels.bsr_spmm import (
-            bell_fill_ratio, bell_row_nblocks, bell_scale, bell_spmm_arrays,
+            bell_fill_ratio, bell_launch, bell_row_nblocks, bell_scale, bell_spmm_arrays,
             bell_spmm_plain, bsr_to_bell)
         from repro_torch.kernels.moe_gemm import (
             gemm_plan, grouped_gemm_arrays, grouped_gemm_plain, plan_groups)
@@ -285,8 +287,8 @@ def main(argv=None) -> int:
     out["build_s"] = time.perf_counter() - t0
     log(f"[build] {len(CB.SOURCES)} kernel libraries ({len(CB.KERNELS)} kernels) in "
         f"{out['build_s']:.1f} s (nvcc, sm_90a)")
-    # every instantiation of the two redesigned kernels below, the rest here
-    ptxas_of = ("grouped_gemm", "csr_spmv")
+    # every instantiation of the two kernels redesigned last below, the rest here
+    ptxas_of = ("sell_spmm", "bell_spmm")
     for name in (nm for nm in CB.SOURCES if nm not in ptxas_of):
         regs = [ln.strip() for ln in CB.build_log(name).splitlines()
                 if "registers" in ln or "spill" in ln and "0 bytes" not in ln]
@@ -748,6 +750,8 @@ def main(argv=None) -> int:
     cp, cw, col, val, scale, perm = map(on, (sm.chunk_ptr, sm.chunk_width, sm.col_idx,
                                              sm.val, sm.scale, sm.perm))
     seg = on(sell.sell_segment_ids(sm))
+    sched = sell.sell_chunk_schedule(sm)   # the kernel's chunk order, built once
+    storage = sell_spmv.ChunkSchedule(np.arange(sm.n_chunks))   # the order before it
     lib = csr_tensor(torch, *sell_triplets(F, sm), sm.shape, dev)
     bw_choice = PM.select_batch_width(sm, chip=chip, backend="cuda")
     widths = (1, 2, 4, 8, 16, 32, 64)
@@ -770,17 +774,24 @@ def main(argv=None) -> int:
                             args.n, sm.C, seg)) for j in range(0, K, 16)]
         X = Xs[K]
         k = lambda: sell_spmv.sell_spmm_arrays(cp, cw, col, val, scale, perm, X,  # noqa: E731
-                                               args.n, sm.C)
+                                               args.n, sm.C, sched)
+        check(torch.equal(k(), Ys[K]), f"batched SpMV K={K}: two calls differ in their bits")
         t = time_ms(torch, k)
         b_ms, b_by = bound_ms(H100, nbytes(cp, cw, col, val, scale, perm)
                               + 2 * X.numel() * 8, 2 * sm.nnz * K, "float64")
+        # every stored slot gathers K values of X (from L2 where the window fits)
+        gather = col.numel() * K * X.element_size()
         row = {"ms": t, "library_ms": time_ms(torch, lambda: lib @ X), "bound_ms": b_ms,
                "bound_by": b_by, "max_abs_err": max(errs),
+               "plain_ms": time_ms(torch, lambda: sell_spmv.sell_spmm_plain(
+                   cp, cw, col, val, scale, perm, X, args.n, sm.C, seg), reps=5),
+               "storage_order_ms": time_ms(torch, lambda: sell_spmv.sell_spmm_arrays(
+                   cp, cw, col, val, scale, perm, X, args.n, sm.C, storage)),
+               "gather_bytes": gather, "gather_tb_s": gather / (t * 1e-3) / 1e12,
+               "launch_ct_tpr": sell_spmv.sell_spmm_launch(K, 8),
                "measured_qps": K / (t * 1e-3),
                "predicted_qps": bw_choice.throughput.get(K)}
         if K == 16:
-            row["plain_ms"] = time_ms(torch, lambda: sell_spmv.sell_spmm_plain(
-                cp, cw, col, val, scale, perm, X, args.n, sm.C, seg), reps=5)
             record("sell_spmm", route="cuda", source="src/repro_torch/csrc/sell_spmm.cu",
                    replaces="src/repro/kernels/sell_spmv.py:147", max_abs_err=row["max_abs_err"],
                    ms=t, plain_ms=row["plain_ms"], bound_ms=b_ms, bound_by=b_by,
@@ -789,8 +800,11 @@ def main(argv=None) -> int:
                          "X (N, 16) f64")
         batch[K] = row
         log(f"[spmm] K={K:2d}: {t:.4f} ms ({row['measured_qps']:.0f} SpMV/s; model "
-            f"{row['predicted_qps']:.0f}), cuSPARSE {row['library_ms']:.4f} ms, bound "
-            f"{b_ms:.4f} ms by {b_by}; max abs err {row['max_abs_err']:.2e}")
+            f"{row['predicted_qps']:.0f}; chunks in storage order "
+            f"{row['storage_order_ms']:.4f} ms), plain {row['plain_ms']:.4f}, cuSPARSE "
+            f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by}; X gathers "
+            f"{gather / 1e9:.3f} GB at {row['gather_tb_s']:.3f} TB/s; (ct, tpr) "
+            f"{row['launch_ct_tpr']}; max abs err {row['max_abs_err']:.2e}")
     # every value dtype the kernel takes, at K = 16: f64 X (f64 accumulation)
     # and f32 X (f32 accumulation, f64 for f64 values)
     for vd in VALUE_DTYPES:
@@ -799,16 +813,18 @@ def main(argv=None) -> int:
                             sv.perm)))
         for X in (Xs[16], Xs[16].float()):
             compare("sell_spmm", f"surrogate {vd} values, X {str(X.dtype)[6:]} K=16",
-                    sell_spmv.sell_spmm_arrays(*ops, X, args.n, sv.C),
+                    sell_spmv.sell_spmm_arrays(*ops, X, args.n, sv.C, sched),
                     sell_spmv.sell_spmm_plain(*ops, X, args.n, sv.C, seg))
         del ops
     del Ys, Xs
     out["batched"] = {"sigma": s_sig, "launches": counts["sell_spmm"], "per_k": batch,
                       "select_batch_width": bw_choice.width,
                       "predicted_throughput": bw_choice.throughput}
+    slower = [K for K in widths if batch[K]["ms"] > batch[K]["library_ms"]]
     log(f"[spmm] select_batch_width picks K={bw_choice.width} (saturation "
         f"{bw_choice.saturation:.3f}); {counts['sell_spmm']} sell_spmm launches for "
-        f"{len(widths)} plan.spmm calls")
+        f"{len(widths)} plan.spmm calls; kernel 5 slower than cuSPARSE at K in "
+        f"{slower or 'none'}")
 
     # --- 9. sparse weights: SparseLinear (kernel 6), grouped GEMM (kernel 7) ----
     # f32 products in full f32 on both sides (cuBLAS would otherwise be free
@@ -840,18 +856,25 @@ def main(argv=None) -> int:
     CB.reset_launch_counts()
     ys = {}
     for B in batches:
-        before = CB.launch_counts()["bell_spmm"]
+        path = f"bell_spmm_{bell_launch(8, 128, B, 4).path}"
+        before = CB.launch_counts()
         ys[B] = lin(xs[B])
-        check(CB.launch_counts()["bell_spmm"] == before + 1,
-              f"SparseLinear B={B}: bell_spmm not launched once")
+        after = CB.launch_counts()
+        check(after["bell_spmm"] == before["bell_spmm"] + 1
+              and after[path] == before[path] + 1,
+              f"SparseLinear B={B}: bell_spmm not launched once on its path {path}")
     counts = CB.launch_counts()
+    check(counts["bell_spmm_decode"] == 1 and counts["bell_spmm_wide"] == 2,
+          f"SparseLinear: per-path launches {counts['bell_spmm_decode']} decode, "
+          f"{counts['bell_spmm_wide']} wide (expected 1 and 2)")
     record("bell_spmm", launches=counts["bell_spmm"])
     for B in batches:
         compare("bell_spmm", f"SparseLinear B={B} vs dense x @ W.T", ys[B], xs[B] @ W_dev.T)
     host_9a = time.perf_counter() - t0
     log(f"[sparse] gemma-7b gate W ({d_ff}, {d_model}) pruned to 25 % in (8, 128) blocks: "
         f"advised {advised}; {nb} blocks, {nb * 8 * 128 * 4 / 1e6:.1f} MB f32; BELL fill "
-        f"ratio {fill:.3f}; bell_spmm launches {counts['bell_spmm']} for "
+        f"ratio {fill:.3f}; bell_spmm launches {counts['bell_spmm']} (decode "
+        f"{counts['bell_spmm_decode']}, wide {counts['bell_spmm_wide']}) for "
         f"{len(batches)} layer calls; host {host_9a:.1f} s")
     # the kernel against its plain version for every value dtype, B = 8, f32 x
     M_ = d_ff
@@ -891,18 +914,24 @@ def main(argv=None) -> int:
         k = lambda: bell_spmm_arrays(bc, sl, X, None, ln, M_)  # noqa: E731
         p = lambda: bell_spmm_plain(bc, sl, X, None, M_)  # noqa: E731
         xb = xs[B]
-        err_b = compare("bell_spmm", f"gemma W f32 blocks, B={B} vs plain", k(), p())
+        got_b = k()
+        err_b = compare("bell_spmm", f"gemma W f32 blocks, B={B} vs plain", got_b, p())
+        check(torch.equal(got_b, k()), f"bell_spmm B={B}: two calls differ in their bits")
         nby = nb * 8 * 128 * 4 + nb * 4 + X.numel() * 4 + M_ * B * 4
         b_ms, b_ms_m, b_by = bytes_bound(nby, 2 * nb * 8 * 128 * B, H100.peak_flops_fp32)
         row = {"ms": time_ms(torch, k), "plain_ms": time_ms(torch, p, reps=5),
                "dense_ms": time_ms(torch, lambda: xb @ W_dev.T),
                "library_ms": time_ms(torch, lambda: lib_t @ X), "library": lib_kind,
                "bound_ms": b_ms, "bound_ms_at_measured_bw": b_ms_m, "bound_by": b_by,
-               "bytes": nby}
+               "bytes": nby, "launch": bell_launch(8, 128, B, 4)._asdict()}
         per_b[B] = row
+        L = row["launch"]
         log(f"[sparse] B={B:2d}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
             f"dense x @ W.T {row['dense_ms']:.4f}, {lib_kind} {row['library_ms']:.4f}, bound "
-            f"{b_ms:.4f} ({b_ms_m:.4f} at the triad rate) by {b_by}")
+            f"{b_ms:.4f} ({b_ms_m:.4f} at the triad rate) by {b_by}; "
+            f"{2 * nb * 8 * 128 * B / (row['ms'] * 1e-3) / 1e12:.2f} TFLOP/s; launch rm "
+            f"{L['rm']} cw {L['cw']} ntile {L['ntile']} G {L['G']} stages {L['stages']} "
+            f"({L['smem']} B)")
         if B == 1:
             record("bell_spmm", route="cuda", source="src/repro_torch/csrc/bell_spmm.cu",
                    replaces="src/repro/kernels/bsr_spmm.py:65",
@@ -1043,7 +1072,8 @@ def main(argv=None) -> int:
     check(plan_b.report.kernel == "cuda", f"bsr plan runs {plan_b.report.kernel}")
     CB.reset_launch_counts()
     yb = plan_b(xb)
-    check(CB.launch_counts()["bell_spmm"] == 1, "bsr plan: bell_spmm not launched once")
+    check(CB.launch_counts()["bell_spmm"] == 1 and CB.launch_counts()["bell_spmm_decode"] == 1,
+          "bsr plan: bell_spmm not launched once on its decode path")
     compare("bell_spmm", f"bsr plan {nbs}^2 vs torch plan, f64 x", yb,
             SpMVPlan.compile(plan_b.matrix, PlanConfig(chip=chip, backend="torch"))(xb))
     plan_o = SpMVPlan.compile(plan_b.matrix, PlanConfig(chip=other_chip))

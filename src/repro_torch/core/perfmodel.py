@@ -447,7 +447,10 @@ def balance_of(fmt_obj, am: AccessModel | None = None, backend: str = "torch",
 #: csr is refitted for the row-block CSR kernel: 0.645, the ``fitted_h100``
 #: geomean of ``chip_smoke.py`` phase 7 on the same card and limit (3.063
 #: TB/s measured; surrogate 0.705, laplacian 1.202, power law 0.318), the
-#: run PERF.md section 6 records as the first of that kernel.
+#: run PERF.md section 6 records as the first of that kernel.  bsr is
+#: refitted for the ring BELL kernel: 0.683, ``fitted_h100_bsr`` of
+#: ``chip_smoke.py`` phase 9c on the same card and limit (3.057 TB/s
+#: measured), the run PERF.md section 6 records for that kernel.
 EXEC_EFFICIENCY = {
     "tpu": {
         "csr": 0.10, "coo": 0.08, "jds": 0.15, "ell": 0.90,
@@ -462,7 +465,7 @@ EXEC_EFFICIENCY = {
     "h100": {
         "csr": 0.645, "jds": 0.201, "ell": 0.280,
         "sell": 0.330, "hybrid": 0.421, "dia": 0.619,
-        "matrix_free": 0.320, "bsr": 0.502,
+        "matrix_free": 0.320, "bsr": 0.683,
     },
 }
 

@@ -40,6 +40,22 @@ __device__ __forceinline__ A widen(T v) { return (A)widen_f(v); }
 template <>
 __device__ __forceinline__ double widen<double, double>(double v) { return v; }
 
+// Cache-streaming loads (evict first) of a matrix stream read once, so that
+// L1 and L2 keep the vector the kernel gathers from
+__device__ __forceinline__ int32_t ld_stream(const int32_t* p) { return __ldcs(p); }
+__device__ __forceinline__ double ld_stream(const double* p) { return __ldcs(p); }
+__device__ __forceinline__ float ld_stream(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ __half ld_stream(const __half* p) { return __ldcs(p); }
+__device__ __forceinline__ int8_t ld_stream(const int8_t* p) {
+  return (int8_t)__ldcs(reinterpret_cast<const signed char*>(p));
+}
+__device__ __forceinline__ bf16_bits ld_stream(const bf16_bits* p) {
+  return bf16_bits{__ldcs(reinterpret_cast<const unsigned short*>(p))};
+}
+__device__ __forceinline__ fp8e4m3_bits ld_stream(const fp8e4m3_bits* p) {
+  return fp8e4m3_bits{__ldcs(reinterpret_cast<const unsigned char*>(p))};
+}
+
 // Instantiate LAUNCH(T, A) for the (storage code, acc64) pair, or return
 // cudaErrorInvalidValue for a pair the acc_dtype rule excludes (f64 storage
 // with an f32 accumulator) or an unknown code.

@@ -41,22 +41,6 @@
 constexpr int kCsrBudget = 1024;                 // nonzeros (and rows) of a row block
 constexpr int kPerThread = kCsrBudget / kBlock;  // 4 loads in flight a thread
 
-// col_idx and val are read once: cache-streaming loads (evict first) keep
-// L1 and L2 for x, which every row block gathers from
-__device__ __forceinline__ int32_t ld_stream(const int32_t* p) { return __ldcs(p); }
-__device__ __forceinline__ double ld_stream(const double* p) { return __ldcs(p); }
-__device__ __forceinline__ float ld_stream(const float* p) { return __ldcs(p); }
-__device__ __forceinline__ __half ld_stream(const __half* p) { return __ldcs(p); }
-__device__ __forceinline__ int8_t ld_stream(const int8_t* p) {
-  return (int8_t)__ldcs(reinterpret_cast<const signed char*>(p));
-}
-__device__ __forceinline__ bf16_bits ld_stream(const bf16_bits* p) {
-  return bf16_bits{__ldcs(reinterpret_cast<const unsigned short*>(p))};
-}
-__device__ __forceinline__ fp8e4m3_bits ld_stream(const fp8e4m3_bits* p) {
-  return fp8e4m3_bits{__ldcs(reinterpret_cast<const unsigned char*>(p))};
-}
-
 template <typename T, typename A>
 __global__ void __launch_bounds__(kBlock)
 csr_rowblock_kernel(const int32_t* __restrict__ row_ptr, const int32_t* __restrict__ col,

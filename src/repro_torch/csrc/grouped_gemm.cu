@@ -50,6 +50,7 @@
 // gives NaN rows, never a stray read.  f32 accumulation; the output is
 // result_type(X, W).
 #include "common.cuh"
+#include "ring.cuh"
 
 #include <cuda.h>  // CUtensorMap and its enums only: libcuda is reached at run time
 
@@ -72,10 +73,6 @@ __device__ __forceinline__ uint16_t bf16_rne(float v) {
 }
 __device__ __forceinline__ void store_out(float* y, float v) { *y = v; }
 __device__ __forceinline__ void store_out(bf16_bits* y, float v) { y->b = bf16_rne(v); }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 // NaN over the (rows, cols) tile at (m0, n0) of Y: a routing table the
 // wrapper could not check gives NaN rows, not a stray read
@@ -333,33 +330,6 @@ struct WgShape {
   static_assert(BM * kWgPitch <= kWgStages * (kA + kB), "epilogue tile must fit the ring");
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    // a phase that never completes (a lost arrival or transaction byte)
-    // fails the launch instead of hanging the card
-    if (spin == (1u << 24)) __trap();
-  }
-}
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1) {
   asm volatile(
@@ -443,8 +413,7 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmX, const __grid_constant
       mbar_init(full(s), 1);
       mbar_init(empty(s), S::kConsumers * 4);  // lane 0 of every consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 

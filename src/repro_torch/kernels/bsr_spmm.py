@@ -15,11 +15,13 @@ on CUDA tensors and runs ``bell_spmm_plain`` on CPU tensors.
 
 The kernel walks only each block row's stored slots (``row_nblocks``), so
 the padding ``bsr_to_bell`` adds is never streamed; SpMV is the N = 1 case
-of the same kernel (no lane-padded x panel).
+of the same kernel (no lane-padded x panel).  ``bell_launch`` picks its
+geometry and ``bell_panels`` lays X out as it reads it.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -29,15 +31,24 @@ from .accum import acc_dtype
 
 NAME = "bell_spmm"
 _ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + [
-    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64] + [
+    ctypes.c_int] * 10 + [ctypes.c_void_p]
 
-#: threads of one CUDA block of the kernel (kThreads in bell_spmm.cu)
+#: consumer threads of one CTA (8 warps; a producer warp comes on top)
 THREADS = 256
-#: shared memory a block may take without an opt-in attribute
-SMEM_MAX = 48 * 1024
-#: most slots one stage of the kernel stages (loads in flight per thread)
-MAX_STAGE = 8
+WARPS = 8
+#: dynamic shared memory one CTA may take on sm_90, and what its mbarriers
+#: take of it (kSmemMax, kBarBytes in bell_spmm.cu)
+SMEM_MAX = 232448
+SMEM_BARRIERS = 128
+#: ring stages at most, and the bytes a ring aims at (two CTAs' rings then
+#: fit one SM at the widest tile)
+MAX_STAGES = 8
+RING_BYTES = 96 * 1024
+#: bytes of each X row one work item covers at most
+TILE_BYTES = 256
+#: rows a thread owns on the wide path (kWideRows)
+WIDE_ROWS = 8
 
 #: integer dtype of each value width, for moving values as raw bits
 _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -107,38 +118,100 @@ def bell_fill_ratio(m) -> float:
 # ---------------------------------------------------------------------------
 
 
-def bell_launch(bm: int, bk: int, N: int, acc_bytes: int,
-                nbpp: int = MAX_STAGE) -> tuple[int, int, int, int]:
-    """``(nt, G, rn, S)`` of one launch: each CUDA block computes one block
-    row times ``nt`` columns of Y; a thread computes ``rn`` neighbouring
-    columns of one row, and ``G`` threads (a power of two <= 32, lanes of
-    one warp) split each output's sum along ``bk`` and meet in a shuffle
-    reduction.  Each stage stages ``S`` slots (at most ``nbpp``, the slots
-    a block row has): their blocks and ``(bk, nt)`` X panels in shared
-    memory, which bounds ``nt`` and ``S``.  Raises ValueError for a block
-    shape whose single row of outputs does not fit."""
-    if min(bm, bk, N) < 1:
-        raise ValueError(f"bell_launch: bm={bm}, bk={bk}, N={N} must be >= 1")
-    rn = 4 if N >= 32 else 1
-    nt = min(-(-N // rn) * rn, 32 * rn)
+class BellLaunch(NamedTuple):
+    """One launch of the BELL kernel.  A work item is one block row times
+    ``ntile`` columns of Y (X is read as ``(n_tiles, K, ntile)`` panels).
+    A thread owns ``rm`` rows x ``cw`` columns: (1, 1) on the "decode" path
+    (N < 8), 2 or 8 rows x 16 bytes of the accumulator on the "wide" path.
+    With rm < 8, ``G`` lanes of one warp split bk; with rm = 8, ``cl`` lanes
+    of a warp run along the column groups and 32 / ``cl`` along bk, ``uh``
+    warps along the (row group, column chunk) units and ``gw`` warps along
+    bk (``G`` = 32 / ``cl`` * ``gw``).  Each of the ``stages`` ring stages
+    holds one stored block (rows padded to a multiple of ``rm``) and its X
+    panel (``stage_bytes``); ``smem`` is the CTA's dynamic shared memory."""
+    path: str
+    cw: int
+    rm: int
+    ntile: int
+    G: int
+    cl: int
+    uh: int
+    gw: int
+    stages: int
+    stage_bytes: int
+    smem: int
 
-    def ntc(nt):
-        return -(-nt // rn)
 
-    def smem(nt):
-        return (bm * bk + bk * ntc(nt) * rn) * acc_bytes
+def _pow2_ceil(v: int) -> int:
+    return 1 << max(0, int(v) - 1).bit_length()
 
-    while nt > 1 and (bm * ntc(nt) > THREADS or smem(nt) > SMEM_MAX):
-        nt = max(1, nt // 2)
-    if bm * ntc(nt) > THREADS or smem(nt) > SMEM_MAX:
-        raise ValueError(f"bell_spmm: a ({bm}, {bk}) block does not fit one CUDA "
-                         f"block ({bm * ntc(nt)} outputs, {smem(nt)} B of shared "
-                         f"memory; at most {THREADS} and {SMEM_MAX})")
+
+def _lanes_along_bk(units: int, bk: int) -> int:
+    """A power of two <= 32 lanes a unit, as many as 256 threads hold."""
     G = 1
-    while G < 32 and 2 * G * bm * ntc(nt) <= THREADS:
+    while G < 32 and 2 * G * units <= THREADS and G < bk:
         G *= 2
-    S = max(1, min(MAX_STAGE, int(nbpp), SMEM_MAX // smem(nt)))
-    return nt, G, rn, S
+    return G
+
+
+def bell_launch(bm: int, bk: int, N: int, acc_bytes: int, val_bytes: int = 4) -> BellLaunch:
+    """The geometry of one launch, its one source (``csrc/bell_spmm.cu``
+    checks it).  N >= 8 takes the wide path: 16 bytes of outputs a thread,
+    a work item at most ``TILE_BYTES`` of each X row; 8 rows a thread with
+    the lanes of a quarter-warp on neighbouring 16-byte pieces of one X row
+    (no bank conflicts) where an item has 4 or more column groups and at
+    most 8 units for the 8 warps, else 2 rows a thread with the lanes along
+    bk (N = 8 in f32: fewer cross-warp sums).  N < 8 takes the decode path: a
+    thread an output, the lanes of a warp along bk.  The ring takes ``RING_BYTES`` (at least two stages, at most
+    ``MAX_STAGES``).  Raises ValueError for a block whose stage does not fit
+    shared memory or whose rows do not fit the threads."""
+    if min(bm, bk, N) < 1 or acc_bytes not in (4, 8):
+        raise ValueError(f"bell_launch: bm={bm}, bk={bk}, N={N}, acc_bytes={acc_bytes}")
+    if N >= 8:
+        cw = 16 // acc_bytes
+        ntile = min(-(-N // cw) * cw, TILE_BYTES // acc_bytes)
+        n_cg = ntile // cw
+        cl = min(8, _pow2_ceil(n_cg))
+        units = -(-bm // WIDE_ROWS) * -(-n_cg // cl)
+        if n_cg >= 4 and units <= WARPS:
+            path, rm, uh = "wide", WIDE_ROWS, _pow2_ceil(units)
+            gw = WARPS // uh
+            G = 32 // cl * gw
+        else:
+            while -(-bm // 2) * (ntile // cw) > THREADS and ntile > cw:
+                ntile = max(cw, ntile // 2 // cw * cw)   # fewer columns an item
+            units = -(-bm // 2) * (ntile // cw)
+            path, rm, cl, uh, gw = "wide", 2, 0, 0, 0
+            G = _lanes_along_bk(units, bk)
+    else:
+        path, cw, rm, cl, uh, gw = "decode", 1, 1, 0, 0, 0
+        units = bm
+        ntile = max(1, min(N, THREADS // bm))
+        G = _lanes_along_bk(bm * ntile, bk)
+    if units > THREADS:
+        raise ValueError(f"bell_spmm: a ({bm}, {bk}) block does not fit one CTA ({units} "
+                         f"output units of {rm} rows; at most {THREADS})")
+    red = WARPS * cl * WIDE_ROWS * cw * acc_bytes if rm == WIDE_ROWS else 0
+    blk = -(-(-(-bm // rm) * rm) * bk * val_bytes // 16) * 16
+    stage = blk + -(-bk * ntile * acc_bytes // 16) * 16
+    room = SMEM_MAX - SMEM_BARRIERS - red
+    if stage > room:
+        raise ValueError(f"bell_spmm: a ({bm}, {bk}) block does not fit one CTA (a stage "
+                         f"of {stage} B of shared memory; at most {room})")
+    stages = min(MAX_STAGES, max(2, RING_BYTES // stage), room // stage)
+    return BellLaunch(path, cw, rm, ntile, G, cl, uh, gw, stages, stage,
+                      SMEM_BARRIERS + red + stages * stage)
+
+
+def bell_panels(X: torch.Tensor, ntile: int) -> torch.Tensor:
+    """X (K, N) as the kernel reads it: ``(n_tiles, K, ntile)`` panels, the
+    last padded with zeros; X itself when one tile spans N."""
+    K, N = X.shape
+    if ntile == N:
+        return X
+    n_tiles = -(-N // ntile)
+    Xp = torch.nn.functional.pad(X, (0, n_tiles * ntile - N))
+    return Xp.view(K, n_tiles, ntile).permute(1, 0, 2).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -208,15 +281,17 @@ def bell_spmm_arrays(bcols, blocks, X, scale=None, row_nblocks=None,
     Y = torch.empty((M, N), dtype=acc, device=dev)
     if M == 0 or N == 0:
         return Y
-    nt, G, rn, S = bell_launch(bm, bk, N, torch.tensor([], dtype=acc).element_size(), nbpp)
+    L = bell_launch(bm, bk, N, Y.element_size(), blocks.element_size())
+    P = bell_panels(X, L.ntile)
     fn = CB.kernel_function(NAME, _ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(CB.value_code(blocks, "blocks"), int(acc == torch.float64),
                 CB.ptr(bcols), CB.ptr(blocks), CB.ptr(scale), CB.ptr(row_nblocks),
-                CB.ptr(X), CB.ptr(Y), nbr, nbpp, bm, bk, M, N, nt, G, rn, S,
-                CB.stream_handle(dev))
+                CB.ptr(P), CB.ptr(Y), nbr, nbpp, bm, bk, M, int(X.shape[0]), N, L.cw,
+                L.rm, L.ntile, L.G, L.cl, L.uh, L.gw, L.stages, CB.stream_handle(dev))
     CB.raise_on_error(NAME, rc)
     CB.count_launch(NAME)
+    CB.count_launch(f"{NAME}_{L.path}")
     return Y
 
 

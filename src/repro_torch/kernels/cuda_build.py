@@ -12,8 +12,8 @@ loaded as it is.
 
 Every wrapper adds one to its entry of the launch counters where it
 launches its kernel, and nowhere else, so a run can show that its main path
-went through the kernels.  The grouped GEMM also counts the path that ran
-(``PATH_COUNTERS``).
+went through the kernels.  The grouped GEMM and the BELL SpMM also count
+the path that ran (``PATH_COUNTERS``).
 """
 from __future__ import annotations
 
@@ -39,9 +39,11 @@ SOURCES = {"sell_spmv": ("sell_spmv",), "dia_spmv": ("dia_spmv",),
            "bell_spmm": ("bell_spmm",), "grouped_gemm": ("grouped_gemm",)}
 KERNELS = tuple(k for names in SOURCES.values() for k in names)
 SOURCE_OF = {k: src for src, names in SOURCES.items() for k in names}
-#: kernels whose entry point holds several CUDA kernels: a launch counts
-#: under the entry point and under the path that ran
-PATH_COUNTERS = ("grouped_gemm_wgmma", "grouped_gemm_simt")
+#: kernels whose entry point runs on several paths (two CUDA kernels, or
+#: one kernel's decode and wide instantiations): a launch counts under the
+#: entry point and under the path that ran
+PATH_COUNTERS = ("grouped_gemm_wgmma", "grouped_gemm_simt", "bell_spmm_decode",
+                 "bell_spmm_wide")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               # separate multiply and add, as the plain PyTorch versions do

@@ -23,6 +23,7 @@ from .registry import CompiledKernel, KernelContext, on_device, register_kernel
 
 register_stat("sell_segment_ids")
 register_stat("sell_padded_views")
+register_stat("sell_chunk_schedule")
 
 #: integer dtype of each value width, for moving values as raw bits
 _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -33,6 +34,13 @@ def sell_segment_ids(m: SELL) -> torch.Tensor:
     return cached(m, "_segment_ids", "sell_segment_ids",
                   lambda: KP.sell_segment_ids(m.chunk_ptr, m.chunk_width, m.C,
                                               m.col_idx.shape[0]))
+
+
+def sell_chunk_schedule(m: SELL) -> KP.ChunkSchedule:
+    """The SpMM kernel's chunk order (``sell_spmv.ChunkSchedule``),
+    host-built and checked once per container."""
+    return cached(m, "_chunk_schedule", "sell_chunk_schedule",
+                  lambda: KP.chunk_schedule(_np(m.perm), m.C, m.shape[0]))
 
 
 def padded_views(m: SELL) -> tuple[torch.Tensor, torch.Tensor]:
@@ -175,11 +183,11 @@ def _check_indices(m: SELL) -> None:
         raise ValueError("SELL perm is not a permutation of the rows")
 
 
-def _build_cuda(m: SELL, ctx, kernel) -> CompiledKernel:
+def _build_cuda(m: SELL, ctx, kernel, **kw) -> CompiledKernel:
     _check_indices(m)
     cp, cw, col, val, scale, perm = _operands(m, ctx)
     n, C = m.shape[0], m.C
-    return CompiledKernel(lambda x: kernel(cp, cw, col, val, scale, perm, x, n, C),
+    return CompiledKernel(lambda x: kernel(cp, cw, col, val, scale, perm, x, n, C, **kw),
                           "cuda")
 
 
@@ -191,8 +199,11 @@ def _build_spmv_cuda(m: SELL, ctx) -> CompiledKernel:
 
 
 @register_kernel("sell", "spmm", "cuda",
-                 description="lanes of a chunk row along K, one matrix pass, "
-                             "fused scale + inverse permutation")
+                 description="chunks in original-row order, K tiles along the grid, "
+                             "columns a thread; fused scale + inverse permutation")
 def _build_spmm_cuda(m: SELL, ctx) -> CompiledKernel:
-    # the launch's K lanes are chosen per call from X's width (sell_k_lanes)
-    return _build_cuda(m, ctx, KP.sell_spmm_arrays)
+    # the K tiling is chosen per call from X's width (sell_spmm_launch)
+    sched = sell_chunk_schedule(m)
+    if ctx.device.type == "cuda":
+        sched.on(ctx.device)  # to the card at plan compile, not on the first SpMM
+    return _build_cuda(m, ctx, KP.sell_spmm_arrays, schedule=sched)

@@ -7,12 +7,15 @@ scale of a quantized container to the finished row sums, and undo the
 sigma permutation: ``y[perm[q]] = tile[q]`` for every real row.
 ``sell_spmv_arrays`` launches ``csrc/sell_spmv.cu`` and ``sell_spmm_arrays``
 ``csrc/sell_spmm.cu`` on CUDA tensors; on CPU tensors they run
-``sell_spmv_plain`` / ``sell_spmm_plain``.
+``sell_spmv_plain`` / ``sell_spmm_plain``.  The SpMM kernel visits the
+chunks in the order of a host-checked ``ChunkSchedule`` (original-row
+order) and tiles K as ``sell_spmm_launch`` says.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import cuda_build as CB
@@ -21,20 +24,82 @@ from .accum import acc_dtype
 NAME = "sell_spmv"
 _ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [
     ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
-_MM_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [
-    ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+_MM_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9 + [
+    ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
 
 
-def sell_k_lanes(K: int) -> int:
-    """Lanes per chunk row of the SELL SpMM kernel, the launch's one
-    source: the next power of two >= K, capped at a warp (wider K loops
-    over tiles of 32 columns).  Nothing is staged in shared memory, so
-    every K fits."""
-    k = 1
-    while k < min(max(1, int(K)), 32):
-        k *= 2
-    return k
+#: bytes of each X row one K tile of the SpMM kernel covers (one grid row):
+#: 32 f64 / 64 f32 columns, so the window of X in flight stays in L2
+SPMM_TILE_BYTES = 256
+#: bytes of X one thread of the SpMM kernel gathers a slot (one 32-byte sector)
+SPMM_THREAD_BYTES = 32
+
+
+def sell_spmm_launch(K: int, acc_bytes: int, aligned: bool = True) -> tuple[int, int]:
+    """``(ct, tpr)`` of one SpMM launch, its one source: a thread owns
+    ``ct`` neighbouring columns of a row (the largest power of two up to
+    32 bytes that divides K, so a thread's columns lie all inside K or all
+    outside; 1 when X or Y is not 16-byte ``aligned``), and ``tpr`` threads
+    (a power of two <= 8) share a row in one K tile of ``tpr * ct``
+    columns, at most ``SPMM_TILE_BYTES`` of each X row.  The grid has
+    ``ceil(K / (tpr * ct))`` tiles along K."""
+    K = int(K)
+    if K < 1 or acc_bytes not in (4, 8):
+        raise ValueError(f"sell_spmm_launch: K={K}, acc_bytes={acc_bytes}")
+    ct = 1
+    while aligned and 2 * ct * acc_bytes <= SPMM_THREAD_BYTES and K % (2 * ct) == 0:
+        ct *= 2
+    tpr = 1
+    while tpr < 8 and tpr * ct < K and 2 * tpr * ct * acc_bytes <= SPMM_TILE_BYTES:
+        tpr *= 2
+    return ct, tpr
+
+
+class ChunkSchedule:
+    """The order in which the SELL SpMM kernel visits the chunks: a
+    permutation of ``range(n_chunks)`` (``order``, int32, on the host),
+    checked when it is made.  ``chunk_schedule`` builds the one the kernel
+    wants, chunks by the first original row they hold, so that the sigma
+    sort's length classes are walked in step and the CTAs in flight gather
+    from one window of X.  ``on(device)`` copies it to a card once;
+    ``sell_spmm_arrays`` takes the order in no other form."""
+
+    def __init__(self, order):
+        o = (order.cpu().numpy() if isinstance(order, torch.Tensor)
+             else np.asarray(order))
+        if o.ndim != 1 or not np.issubdtype(o.dtype, np.integer) or not np.array_equal(
+                np.sort(o.astype(np.int64)), np.arange(o.shape[0])):
+            raise ValueError("chunk schedule: the order is not a permutation of "
+                             "range(n_chunks)")
+        self.order = torch.from_numpy(o.astype(np.int32))
+        self._on: dict = {}
+
+    @property
+    def n_chunks(self) -> int:
+        return self.order.shape[0]
+
+    def on(self, device) -> torch.Tensor:
+        """``order`` on ``device``, copied there once."""
+        key = str(torch.device(device))
+        if key not in self._on:
+            self._on[key] = self.order.to(device)
+        return self._on[key]
+
+
+def chunk_first_rows(perm, C: int, n_rows: int) -> np.ndarray:
+    """The first original row of each chunk (``n_rows`` for a chunk of pad
+    rows only)."""
+    p = (perm.cpu().numpy() if isinstance(perm, torch.Tensor) else np.asarray(perm))
+    p = p.astype(np.int64).reshape(-1, C)
+    return np.where(p < n_rows, p, n_rows).min(axis=1) if p.size else np.zeros(0, np.int64)
+
+
+def chunk_schedule(perm, C: int, n_rows: int) -> ChunkSchedule:
+    """The kernel's chunk order for a container's ``perm`` (numpy or torch,
+    any device): chunks by first original row, ties in storage order.  For
+    sigma = 1 (``perm`` the identity) it is the identity."""
+    return ChunkSchedule(np.argsort(chunk_first_rows(perm, C, n_rows), kind="stable"))
 
 
 def sell_segment_ids(chunk_ptr: torch.Tensor, chunk_width: torch.Tensor,
@@ -129,10 +194,21 @@ def sell_spmv_arrays(chunk_ptr, chunk_width, col_idx, val, scale, perm, x,
 
 
 def sell_spmm_arrays(chunk_ptr, chunk_width, col_idx, val, scale, perm, X,
-                     n_rows: int, C: int):
-    """SELL SpMM, one matrix pass for the K columns of X (N, K): the CUDA
-    kernel for a CUDA ``X``, the plain version for a CPU ``X``.  Returns
-    Y (n_rows, K) in original row order, in ``acc_dtype(val, X)``."""
+                     n_rows: int, C: int, schedule: ChunkSchedule | None = None):
+    """SELL SpMM, Y = A X for the K columns of X (N, K): the CUDA kernel
+    for a CUDA ``X``, the plain version for a CPU ``X``.  Returns Y
+    (n_rows, K) in original row order, in ``acc_dtype(val, X)``.
+    ``schedule`` is the container's ``ChunkSchedule`` (a plan passes its
+    cached one; without it the schedule is built here, from a host copy of
+    ``perm``)."""
+    nc = chunk_width.shape[0]
+    if schedule is not None:
+        if not isinstance(schedule, ChunkSchedule):
+            raise TypeError(f"sell_spmm: schedule must be a ChunkSchedule "
+                            f"(chunk_schedule(perm, C, n_rows)), got {type(schedule).__name__}")
+        if schedule.n_chunks != nc:
+            raise ValueError(f"sell_spmm: the schedule orders {schedule.n_chunks} chunks, "
+                             f"the matrix has {nc}")
     if X.device.type == "cpu":
         return sell_spmm_plain(chunk_ptr, chunk_width, col_idx, val, scale,
                                perm, X, n_rows, C)
@@ -144,14 +220,21 @@ def sell_spmm_arrays(chunk_ptr, chunk_width, col_idx, val, scale, perm, X,
     acc = acc_dtype(val.dtype, X.dtype)
     X = X.to(acc).contiguous()
     _check_operands(chunk_ptr, chunk_width, col_idx, val, scale, perm, C, dev)
-    nc, K = chunk_width.shape[0], int(X.shape[1])
+    K = int(X.shape[1])
     Y = torch.empty((n_rows, K), dtype=acc, device=dev)
+    if K == 0:
+        return Y
+    if schedule is None:
+        schedule = chunk_schedule(perm, C, n_rows)
+    order = schedule.on(dev)
+    ct, tpr = sell_spmm_launch(K, Y.element_size(),
+                               aligned=(X.data_ptr() | Y.data_ptr()) % 16 == 0)
     fn = CB.kernel_function("sell_spmm", _MM_ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(CB.value_code(val, "val"), int(acc == torch.float64),
                 CB.ptr(chunk_ptr), CB.ptr(chunk_width), CB.ptr(col_idx),
-                CB.ptr(val), CB.ptr(scale), CB.ptr(perm), CB.ptr(X), CB.ptr(Y),
-                nc, C, n_rows, K, sell_k_lanes(K), CB.stream_handle(dev))
+                CB.ptr(val), CB.ptr(scale), CB.ptr(perm), CB.ptr(order), CB.ptr(X),
+                CB.ptr(Y), nc, C, n_rows, K, ct, tpr, CB.stream_handle(dev))
     CB.raise_on_error("sell_spmm", rc)
     CB.count_launch("sell_spmm")
     return Y

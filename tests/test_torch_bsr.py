@@ -206,24 +206,88 @@ def test_bsr_cuda_entry_wins_whatever_chip_is_priced(monkeypatch):
             assert PR.select_backend(obj, "bsr", op, ctx)[0] == "cuda"
 
 
-@pytest.mark.parametrize("N", (1, 3, 8, 16, 31, 32, 40, 64, 100, 1000))
+@pytest.mark.parametrize("N", (1, 3, 7, 8, 16, 31, 32, 40, 64, 100, 256, 1000))
 @pytest.mark.parametrize("blk,acc_bytes", [((8, 128), 4), ((8, 128), 8), ((16, 128), 4),
                                            ((16, 128), 8), ((8, 8), 4), ((32, 256), 4)])
 def test_bell_launch_geometry_fits_the_block(blk, acc_bytes, N):
     bm, bk = blk
-    nt, G, rn, S = KB.bell_launch(bm, bk, N, acc_bytes)
-    ntc = -(-nt // rn)
-    assert rn in (1, 4) and 1 <= nt <= max(N, rn) and 1 <= G <= 32 and 32 % G == 0
-    assert bm * ntc * G <= KB.THREADS and 1 <= S <= KB.MAX_STAGE
-    assert (bm * bk + bk * ntc * rn) * acc_bytes * S <= KB.SMEM_MAX
-    assert KB.bell_launch(bm, bk, N, acc_bytes, nbpp=2)[3] <= 2   # no more than a row holds
-    if N == 1:  # decode: the whole CUDA block works on the one column
-        assert (nt, rn) == (1, 1) and G == min(32, KB.THREADS // bm)
+    L = KB.bell_launch(bm, bk, N, acc_bytes, acc_bytes)
+    n_tiles = -(-N // L.ntile)
+    n_cg = L.ntile // L.cw
+    assert L.ntile % L.cw == 0 and (n_tiles - 1) * L.ntile < N
+    # a thread's accumulators: at most 32 registers' worth (8 x 16 bytes)
+    assert L.rm * L.cw * acc_bytes <= KB.WIDE_ROWS * 16
+    if L.path == "decode":   # an output a thread
+        assert N < 8 and (L.cw, L.rm) == (1, 1) and L.ntile <= N
+    else:   # 16 bytes of outputs a thread, <= 256 bytes of an X row an item
+        assert N >= 8 and L.cw == 16 // acc_bytes and L.ntile * acc_bytes <= KB.TILE_BYTES
+        assert L.rm in (2, KB.WIDE_ROWS)
+    if L.rm < KB.WIDE_ROWS:   # G lanes of one warp along bk
+        assert 1 <= L.G <= 32 and 32 % L.G == 0
+        assert -(-bm // L.rm) * n_cg * L.G <= KB.THREADS and (L.cl, L.uh, L.gw) == (0, 0, 0)
+        red = 0
+    else:
+        # a quarter-warp's cl lanes read distinct 16-byte pieces of an X row;
+        # the 2-8 (row group, column chunk) units fit the uh warps, gw warps split bk
+        assert L.cl == min(8, 1 << (n_cg - 1).bit_length())
+        units = -(-bm // KB.WIDE_ROWS) * -(-n_cg // L.cl)
+        assert n_cg >= 4 and units <= L.uh and L.uh * L.gw == KB.WARPS
+        assert L.G == 32 // L.cl * L.gw
+        red = KB.WARPS * L.cl * KB.WIDE_ROWS * L.cw * acc_bytes
+    # the ring in shared memory: a block (rows padded to rm) and its X panel a stage
+    r16 = lambda b: -(-b // 16) * 16  # noqa: E731
+    rows = -(-bm // L.rm) * L.rm
+    assert L.stage_bytes == r16(rows * bk * acc_bytes) + r16(bk * L.ntile * acc_bytes)
+    assert 1 <= L.stages <= KB.MAX_STAGES
+    assert L.smem == KB.SMEM_BARRIERS + red + L.stages * L.stage_bytes <= KB.SMEM_MAX
+    if N == 1:  # decode: the CTA's threads run along bk of the block's rows
+        assert L.ntile == 1 and L.G == min(32, KB.THREADS // bm, bk)
+
+
+def test_bell_launch_at_the_sparse_layers_widths():
+    # Gemma-7B gate, (8, 128) f32 blocks: at B = 64 8 x 4 outputs a thread,
+    # 8 lanes along the 16 column groups, 4 along bk, 2 x 4 warps
+    L64 = KB.bell_launch(8, 128, 64, 4)
+    assert (L64.path, L64.rm, L64.ntile, L64.cl, L64.uh, L64.gw, L64.G) == (
+        "wide", 8, 64, 8, 2, 4, 16)
+    assert L64.stages >= 2 and 2 * L64.smem <= KB.SMEM_MAX   # two CTAs an SM
+    # at B = 8 2 x 4 outputs a thread, a warp's lanes along bk
+    L8 = KB.bell_launch(8, 128, 8, 4)
+    assert (L8.path, L8.rm, L8.ntile, L8.G) == ("wide", 2, 8, 32)
+    L1 = KB.bell_launch(8, 128, 1, 4)
+    assert (L1.path, L1.ntile, L1.G, L1.stages) == ("decode", 1, 32, KB.MAX_STAGES)
+    # narrow values keep their width in the ring
+    assert KB.bell_launch(8, 128, 1, 4, 1).stage_bytes == 8 * 128 + 128 * 4
+
+
+def test_bell_panels_tile_x_for_the_kernel():
+    X = torch.arange(5 * 7, dtype=torch.float32).view(5, 7)
+    assert KB.bell_panels(X, 7) is X
+    P = KB.bell_panels(X, 3)
+    assert P.shape == (3, 5, 3) and P.is_contiguous()
+    assert torch.equal(P.permute(1, 0, 2).reshape(5, 9)[:, :7], X)
+    assert not P[2, :, 1:].any()
+
+
+def test_bell_spmm_path_counters_rise_only_on_the_card():
+    assert {c for c in CB.PATH_COUNTERS if c.startswith("bell_spmm_")} == {
+        "bell_spmm_decode", "bell_spmm_wide"}
+    assert [KB.bell_launch(8, 128, N, 4).path for N in (1, 7, 8, 64)] == [
+        "decode", "decode", "wide", "wide"]
+    b = PF.BSR.from_dense(np.eye(16, 256, dtype=np.float32), (8, 128))
+    bc, sl = KB.bsr_to_bell(b)
+    before = CB.launch_counts()
+    y = KB.bell_spmm_arrays(bc, sl, torch.ones(256, 8), None, KB.bell_row_nblocks(b))
+    assert CB.launch_counts() == before and torch.equal(y, torch.ones(16, 8))
 
 
 def test_bell_launch_refuses_a_block_too_large():
     with pytest.raises(ValueError, match="does not fit"):
         KB.bell_launch(512, 128, 1, 4)
+    with pytest.raises(ValueError, match="does not fit"):   # rows past 256 threads x 2
+        KB.bell_launch(600, 8, 64, 4)
+    with pytest.raises(ValueError, match="does not fit"):   # one stage over shared memory
+        KB.bell_launch(256, 256, 8, 8, 8)
 
 
 # --- the perfmodel's BSR terms and the bsr plans ---------------------------------

@@ -15,7 +15,7 @@ import torch  # noqa: E402
 
 from _torch_parity import (  # noqa: E402
     VALUE_DTYPE_TOL, VALUE_DTYPES, as_np, operand, port_apply, ref_apply, ref_matrix,
-    rel_err, to_port, x64)
+    ref_sell_spmm_pallas, rel_err, to_port, x64)
 from repro.core import formats as RF  # noqa: E402
 from repro_torch.core import formats as PF  # noqa: E402
 from repro_torch.kernels import cuda_build as CB  # noqa: E402
@@ -243,20 +243,6 @@ def test_ell_jds_narrow_dtypes_within_budget(fmt, vd):
 # --- SELL SpMM: the kernel's plain version against the Pallas kernel ----------
 
 
-def _ref_sell_spmm_pallas(ref_c, X):
-    """The reference's Pallas SpMM (interpreted) + its per-chunk scale +
-    its inverse-permutation scatter."""
-    import jax.numpy as jnp
-    from repro.kernels import sell as RS
-    from repro.kernels import sell_spmv as RK
-    col3, val3, _ = ref_c.padded_views()
-    tiles = RK.sell_spmm_arrays(jnp.asarray(col3), jnp.asarray(val3), jnp.asarray(X),
-                                chunk_block=8, interpret=True)
-    if ref_c.scale is not None:
-        tiles = tiles * jnp.asarray(ref_c.scale).astype(tiles.dtype)[:, None, None]
-    return np.asarray(RK.sell_spmm_scatter(tiles, RS._perm_arg(ref_c), ref_c.shape[0]))
-
-
 @pytest.mark.parametrize("vd", VALUE_DTYPES)
 def test_sell_spmm_plain_matches_reference_pallas_and_xla(vd):
     from repro_torch.kernels import sell_spmv as KP
@@ -264,7 +250,7 @@ def test_sell_spmm_plain_matches_reference_pallas_and_xla(vd):
     dt = np.float64 if vd == "f64" else np.float32
     X = operand(ref_c.shape[1], 4, seed=21, dtype=dt)
     with x64(vd == "f64"):
-        want_pallas = _ref_sell_spmm_pallas(ref_c, X)
+        want_pallas = ref_sell_spmm_pallas(ref_c, X)
         want_xla = ref_apply(ref_c, "sell", "spmm", "xla", X)
     with x64():
         oracle = ref_apply(ref_container("sell"), "sell", "spmm", "xla", X.astype(np.float64))

@@ -56,22 +56,79 @@ def test_cuda_matrix_free_matches_torch_on_the_card(cuda_device, vd):
     assert torch.allclose(kern.spmm(X), plain.spmm(X), rtol=0, atol=1e-12)
 
 
+def _sell(name: str, sigma):
+    """A SELL container on the host: the surrogate (C = 8) at sigma 1, 64 or
+    N (None), or the ragged matrix (empty rows, rows of thousands of
+    nonzeros; C = 7 leaves a ragged last chunk)."""
+    if name == "ragged":
+        rp, col, val, shape = ragged_csr_arrays()
+        m, C = PF.CSR(*map(torch.from_numpy, (rp, col, val)), shape), 7
+    else:
+        m, C = port_matrix(name), 8
+    return PF.SELL.from_csr(m, C=C, sigma=m.shape[0] if sigma is None else sigma)
+
+
+_SELL_CASES = [("surrogate3000", 1), ("surrogate3000", 64), ("surrogate3000", None),
+               ("ragged", None)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", (1, 3, 16, 40))
+@pytest.mark.parametrize("K", (1, 3, 16, 40, 64, 100))
 @pytest.mark.parametrize("vd", ("f64", "f32", "bf16", "f16", "fp8_e4m3", "int8"))
-def test_cuda_sell_spmm_matches_torch_on_the_card(cuda_device, vd, K):
-    m = PF.with_value_dtype(PF.convert(port_matrix("surrogate3000"), "sell"), vd)
+@pytest.mark.parametrize("name,sigma", _SELL_CASES, ids=str)
+def test_cuda_sell_spmm_matches_torch_on_the_card(cuda_device, name, sigma, vd, K):
+    m = PF.with_value_dtype(_sell(name, sigma), vd)
     X = torch.from_numpy(np.random.default_rng(2).standard_normal((m.shape[1], K))).to(
         cuda_device, torch.float64 if vd == "f64" else torch.float32)
     kern = SpMVPlan.compile(m, PlanConfig(device=cuda_device))
     plain = SpMVPlan.compile(m, PlanConfig(device=cuda_device, backend="torch"))
     assert kern.report.spmm_kernel == "cuda"
     before = CB.launch_counts()["sell_spmm"]
-    got, want = kern.spmm(X), plain.spmm(X)
+    got, again, want = kern.spmm(X), kern.spmm(X), plain.spmm(X)
     torch.cuda.synchronize()
-    assert CB.launch_counts()["sell_spmm"] == before + 1
+    assert CB.launch_counts()["sell_spmm"] == before + 2
+    # rows in slot order, no atomics: the same bits on every call
+    assert torch.equal(got, again) and torch.isfinite(got).all()
+    assert got.shape == want.shape and got.dtype == want.dtype
     tol = 1e-12 if X.dtype == torch.float64 else 1e-5
-    assert float((got - want).abs().max() / want.abs().max()) <= tol
+    assert _rel(got, want) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", (1, 4, 16))
+def test_cuda_sell_spmm_unaligned_operands_on_the_card(cuda_device, K):
+    from repro_torch.kernels import sell_spmv as KP
+    m = _sell("surrogate3000", None)
+    ops = [None if t is None else t.to(cuda_device) for t in
+           (m.chunk_ptr, m.chunk_width, m.col_idx, m.val, m.scale, m.perm)]
+    base = torch.from_numpy(np.random.default_rng(4).standard_normal(m.shape[1] * K + 1)).to(
+        cuda_device)
+    X = base[1:].view(m.shape[1], K)   # contiguous, 8 bytes past a 16-byte boundary
+    assert X.data_ptr() % 16 == 8
+    got = KP.sell_spmm_arrays(*ops, X, m.shape[0], m.C)
+    want = KP.sell_spmm_plain(*ops, X, m.shape[0], m.C)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_cuda_sell_spmm_refuses_a_schedule_it_did_not_check(cuda_device):
+    from repro_torch.kernels import sell_spmv as KP
+    m = _sell("surrogate3000", None)
+    ops = [None if t is None else t.to(cuda_device) for t in
+           (m.chunk_ptr, m.chunk_width, m.col_idx, m.val, m.scale, m.perm)]
+    X = torch.ones((m.shape[1], 4), dtype=torch.float64, device=cuda_device)
+    before = CB.launch_counts()["sell_spmm"]
+    with pytest.raises(TypeError, match="ChunkSchedule"):
+        KP.sell_spmm_arrays(*ops, X, m.shape[0], m.C,
+                            schedule=torch.zeros(m.n_chunks, dtype=torch.int32,
+                                                 device=cuda_device))
+    with pytest.raises(ValueError, match="permutation"):
+        KP.ChunkSchedule(np.zeros(m.n_chunks, np.int32))
+    with pytest.raises(ValueError, match="chunks"):
+        KP.sell_spmm_arrays(*ops, X, m.shape[0], m.C,
+                            schedule=KP.ChunkSchedule(np.arange(m.n_chunks + 1)))
+    assert CB.launch_counts()["sell_spmm"] == before
 
 
 @pytest.mark.cuda
@@ -111,30 +168,80 @@ def test_cuda_kernel_runs_whatever_chip_the_plan_prices(cuda_device, fmt, chip):
 # --- kernel 6 (BELL block SpMM) and kernel 7 (grouped MoE GEMM) -----------------
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("N", (1, 3, 8, 40, 64))
-@pytest.mark.parametrize("vd", ("f64", "f32", "bf16", "f16", "fp8_e4m3", "int8"))
-@pytest.mark.parametrize("blk", ((8, 128), (16, 128), (8, 8)), ids=str)
-def test_cuda_bell_spmm_matches_plain_on_the_card(cuda_device, blk, vd, N):
+def _bell(blk, vd, m, n, cuda_device):
     from repro_torch.core.matrices import block_sparse_dense
     from repro_torch.kernels import bsr_spmm as KB
-    m, n = (96, 512) if blk[1] == 128 else (96, 64)
     b = PF.with_value_dtype(PF.BSR.from_dense(block_sparse_dense(m, n, blk, 0.4, seed=1),
                                               blk), vd)
     bc, sl = KB.bsr_to_bell(b)
     sc, ln = KB.bell_scale(b), KB.bell_row_nblocks(b)
-    bc, sl, ln = bc.to(cuda_device), sl.to(cuda_device), ln.to(cuda_device)
-    sc = None if sc is None else sc.to(cuda_device)
+    return (bc.to(cuda_device), sl.to(cuda_device),
+            None if sc is None else sc.to(cuda_device), ln.to(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens", ("row_nblocks", "all_slots"))
+@pytest.mark.parametrize("N", (1, 3, 8, 40, 64, 128, 256))
+@pytest.mark.parametrize("vd", ("f64", "f32", "bf16", "f16", "fp8_e4m3", "int8"))
+@pytest.mark.parametrize("blk", ((8, 128), (16, 128), (8, 8), (32, 256)), ids=str)
+def test_cuda_bell_spmm_matches_plain_on_the_card(cuda_device, blk, vd, N, lens):
+    from repro_torch.kernels import bsr_spmm as KB
+    m, n = (96, 512) if blk[1] >= 128 else (96, 64)
+    bc, sl, sc, ln = _bell(blk, vd, m, n, cuda_device)
+    ln = ln if lens == "row_nblocks" else None   # padding slots hold zero blocks
     X = torch.from_numpy(np.random.default_rng(3).standard_normal((n, N))).to(
         cuda_device, torch.float64 if vd == "f64" else torch.float32)
     before = CB.launch_counts()["bell_spmm"]
     got = KB.bell_spmm_arrays(bc, sl, X, sc, ln, m - blk[0])
+    again = KB.bell_spmm_arrays(bc, sl, X, sc, ln, m - blk[0])
     want = KB.bell_spmm_plain(bc, sl, X, sc, m - blk[0])
     torch.cuda.synchronize()
-    assert CB.launch_counts()["bell_spmm"] == before + 1
+    assert CB.launch_counts()["bell_spmm"] == before + 2
+    assert torch.equal(got, again) and torch.isfinite(got).all()
     assert got.shape == want.shape == (m - blk[0], N) and got.dtype == want.dtype
     tol = 1e-12 if X.dtype == torch.float64 else 1e-5
-    assert float((got - want).abs().max() / want.abs().max()) <= tol
+    assert _rel(got, want) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", (1, 3, 8, 13))
+@pytest.mark.parametrize("vd", ("f64", "f32", "bf16"))
+@pytest.mark.parametrize("offset", (0, 1))
+def test_cuda_bell_spmm_odd_shapes_and_unaligned_x_on_the_card(cuda_device, offset, vd, N):
+    """(3, 5) blocks: neither a block nor an X row is a 16-byte multiple, so
+    the producer's lanes copy them; an X 4 or 8 bytes off a 16-byte boundary
+    takes the same path."""
+    from repro_torch.kernels import bsr_spmm as KB
+    m, n = 96, 65
+    bc, sl, sc, ln = _bell((3, 5), vd, m, n, cuda_device)
+    dt = torch.float64 if vd == "f64" else torch.float32
+    base = torch.from_numpy(np.random.default_rng(5).standard_normal(n * N + 1)).to(
+        cuda_device, dt)
+    X = base[offset:offset + n * N].view(n, N)
+    got = KB.bell_spmm_arrays(bc, sl, X, sc, ln, m)
+    want = KB.bell_spmm_plain(bc, sl, X, sc, m)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= (1e-12 if dt == torch.float64 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", (1, 8, 40))
+@pytest.mark.parametrize("vd", ("f64", "f32", "int8"))
+def test_cuda_bell_spmm_tall_blocks_on_the_card(cuda_device, vd, N):
+    """(128, 16) blocks: more rows than the 8 warps own at 8 rows a thread;
+    N = 40 runs on tiles of 8 columns (X read as zero-padded panels)."""
+    from repro_torch.kernels import bsr_spmm as KB
+    L = KB.bell_launch(128, 16, N, 4)
+    assert L.rm < KB.WIDE_ROWS and L.ntile == {1: 1, 8: 8, 40: 8}[N]
+    m, n = 384, 64
+    bc, sl, sc, ln = _bell((128, 16), vd, m, n, cuda_device)
+    X = torch.from_numpy(np.random.default_rng(6).standard_normal((n, N))).to(
+        cuda_device, torch.float64 if vd == "f64" else torch.float32)
+    got = KB.bell_spmm_arrays(bc, sl, X, sc, ln, m)
+    want = KB.bell_spmm_plain(bc, sl, X, sc, m)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= (1e-12 if X.dtype == torch.float64 else 1e-5)
 
 
 @pytest.mark.cuda

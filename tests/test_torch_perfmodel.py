@@ -223,12 +223,19 @@ def test_select_format_refuses_tuning_and_passes_concrete_containers():
         PM.select_format(to_port(ref_matrix("exact3")), tuning="db.json")
 
 
-@pytest.mark.parametrize("K,lanes", [(1, 1), (2, 2), (3, 4), (16, 16), (32, 32), (64, 32),
-                                     (100, 32)])
-def test_sell_spmm_lanes(K, lanes):
-    from repro_torch.kernels.sell_spmv import sell_k_lanes
-    # a power of two that covers K, at most a warp: 32 % lanes == 0
-    assert sell_k_lanes(K) == lanes and 32 % lanes == 0
+@pytest.mark.parametrize("K,acc_bytes,ct,tpr", [
+    (1, 8, 1, 1), (2, 8, 2, 1), (3, 8, 1, 4), (16, 8, 4, 4), (32, 8, 4, 8), (64, 8, 4, 8),
+    (100, 8, 4, 8), (1, 4, 1, 1), (3, 4, 1, 4), (16, 4, 8, 2), (64, 4, 8, 8), (100, 4, 4, 8)])
+def test_sell_spmm_launch(K, acc_bytes, ct, tpr):
+    from repro_torch.kernels.sell_spmv import SPMM_TILE_BYTES, SPMM_THREAD_BYTES, sell_spmm_launch
+    assert sell_spmm_launch(K, acc_bytes) == (ct, tpr)
+    # a thread's columns are one power-of-two run inside K, at most a 32-byte
+    # sector; a K tile is at most 256 bytes of an X row, tpr threads a row
+    assert K % ct == 0 and ct & (ct - 1) == 0 and ct * acc_bytes <= SPMM_THREAD_BYTES
+    assert tpr & (tpr - 1) == 0 and tpr <= 8 and tpr * ct * acc_bytes <= SPMM_TILE_BYTES
+    # unaligned X or Y: one column a thread, the same tile width or narrower
+    ct1, tpr1 = sell_spmm_launch(K, acc_bytes, aligned=False)
+    assert ct1 == 1 and tpr1 <= 8 and tpr1 * acc_bytes <= SPMM_TILE_BYTES
 
 
 # --- the registry's cost ranking and the plan reports --------------------------

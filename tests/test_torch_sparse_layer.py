@@ -286,7 +286,8 @@ def test_gemm_plan_picks_the_path_and_tile(x, w, bt, D, F, plan):
 
 
 def test_grouped_gemm_path_counters_rise_only_on_the_card():
-    assert set(CB.PATH_COUNTERS) == {f"grouped_gemm_{p}" for p in PMOE.PATHS}
+    assert {c for c in CB.PATH_COUNTERS if c.startswith("grouped_gemm_")} == {
+        f"grouped_gemm_{p}" for p in PMOE.PATHS}
     assert set(CB.PATH_COUNTERS) <= set(CB.launch_counts())
     te = torch.zeros(2, dtype=torch.int32)
     X, W = torch.ones(256, 16, dtype=BF), torch.ones(1, 16, 8, dtype=BF)
