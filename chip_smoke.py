@@ -12,20 +12,26 @@ repository configures:
 
 1. the card's name and power limit, the kernel build time, and the
    compiler's registers, shared memory and spills for every instantiation
-   of the kernels redesigned last (SELL SpMM, BELL SpMM);
+   of the kernels redesigned last (SELL SpMV, STREAM triad, SELL SpMM,
+   BELL SpMM);
 2. every SpMV kernel at the main path's shapes against its plain PyTorch
    version on the same inputs (f64 and f32 accumulation, every value
    dtype), with CUDA-event times of the kernel, the plain version and the
    cuSPARSE yardstick (``torch.sparse_csr_tensor @ x``), beside the bound;
+   the SELL kernel (on its host-checked chunk blocks) also with ``add_to``,
+   two calls bit-equal, and the x bytes its gathers read;
 3. the main path: the N = 1,201,200 Holstein-Hubbard surrogate split into
-   DIA + SELL, compiled into a plan, and 64 Lanczos steps on the card --
-   the DIA and SELL launch counters must rise once per SpMV, and the
-   recurrence must match a Lanczos run through the plain ``torch`` entry;
+   DIA + SELL, compiled into a plan (the SELL kernel adds its rows into the
+   DIA kernel's output: bit-equal to the two outputs added), and 64 Lanczos
+   steps on the card -- the DIA and SELL launch counters must rise once per
+   SpMV, and the recurrence must match a Lanczos run through the plain
+   ``torch`` entry;
 4. exact physics through the matrix-free kernel in f64 (E0 of the L = 4
    Holstein-Hubbard chain against dense ``eigvalsh``), and Lanczos through a
    ``csr`` plan and the CSR kernel;
-5. the STREAM calibration: the triad kernel against its plain version and
-   ``torch.addcmul`` (f32, f64, 2^26 per array), then ``card_chip()`` --
+5. the STREAM calibration: the triad kernel against its plain version (bit
+   for bit) and ``torch.addcmul`` (f32, f64, 2^26 per array, both timed),
+   then ``card_chip()`` --
    the card's measured bandwidth, which must stay within 1.05x the data
    sheet's 3.35 TB/s;
 6. the microbenchmarks: Table 1 (n = 2^22, k = 8) and the dense-vs-indirect
@@ -287,8 +293,8 @@ def main(argv=None) -> int:
     out["build_s"] = time.perf_counter() - t0
     log(f"[build] {len(CB.SOURCES)} kernel libraries ({len(CB.KERNELS)} kernels) in "
         f"{out['build_s']:.1f} s (nvcc, sm_90a)")
-    # every instantiation of the two kernels redesigned last below, the rest here
-    ptxas_of = ("sell_spmm", "bell_spmm")
+    # every instantiation of the kernels redesigned last below, the rest here
+    ptxas_of = ("sell_spmv", "gather_bench", "sell_spmm", "bell_spmm")
     for name in (nm for nm in CB.SOURCES if nm not in ptxas_of):
         regs = [ln.strip() for ln in CB.build_log(name).splitlines()
                 if "registers" in ln or "spill" in ln and "0 bytes" not in ln]
@@ -338,22 +344,40 @@ def main(argv=None) -> int:
         cp, cw, col, val, scale, perm = map(on, (s.chunk_ptr, s.chunk_width,
                                                  s.col_idx, s.val, s.scale, s.perm))
         seg = on(sell.sell_segment_ids(s))
+        blocks = sell.sell_chunk_blocks(s)
         n, C = s.shape[0], s.C
         args_ = (cp, cw, col, val, scale, perm, x, n, C)
-        k = lambda: sell_spmv.sell_spmv_arrays(*args_)  # noqa: E731
+        k = lambda: sell_spmv.sell_spmv_arrays(*args_, blocks)  # noqa: E731
         p = lambda: sell_spmv.sell_spmv_plain(*args_, seg)  # noqa: E731
-        err = compare("sell_spmv", what, k(), p())
+        got = k()
+        err = compare("sell_spmv", what, got, p())
+        check(torch.equal(got, k()), f"sell_spmv {what}: two calls differ (no atomics: "
+                                     "the sums have a fixed order)")
+        base = torch.from_numpy(np.random.default_rng(3).standard_normal(n)).to(dev, got.dtype)
+        into = base.clone()
+        added = sell_spmv.sell_spmv_arrays(*args_, blocks, add_to=into)
+        check(added is into and torch.equal(added, base + got),
+              f"sell_spmv {what}: add_to is not base + y, in place")
         if timed:
-            acc = str(k().dtype).replace("torch.", "")
+            acc = str(got.dtype).replace("torch.", "")
             lib = csr_tensor(torch, *sell_triplets(F, s), s.shape, dev)
             xl = x.double()
             b, by = bound_ms(H100, nbytes(cp, cw, col, val, scale, perm, x)
                              + n * x.element_size(), 2 * s.nnz, acc)
+            t = time_ms(torch, k)
+            # every stored slot gathers one value of x (from L2: x fits)
+            gather = col.numel() * x.element_size()
             record("sell_spmv", route="cuda", source="src/repro_torch/csrc/sell_spmv.cu",
                     replaces="src/repro/kernels/sell_spmv.py:79", max_abs_err=err,
-                    ms=time_ms(torch, k), plain_ms=time_ms(torch, p), bound_ms=b,
+                    ms=t, plain_ms=time_ms(torch, p), bound_ms=b,
                     bound_by=by, library_ms=time_ms(torch, lambda: lib @ xl),
-                    shape=f"hybrid SELL rest, C={C}, {s.nnz} nnz, val f32, x f64")
+                    gather_bytes=gather, gather_tb_s=gather / (t * 1e-3) / 1e12,
+                    chunk_blocks=blocks.n_blocks,
+                    shape=f"hybrid SELL rest, C={C}, {s.nnz} nnz, {blocks.n_blocks} chunk "
+                          f"blocks of <= {sell_spmv.SELL_BUDGET} slots, val f32, x f64")
+            log(f"[sell] kernel 1 {t:.4f} ms, bound {b:.4f} by {by}; x gathers "
+                f"{gather / 1e6:.1f} MB ({col.numel()} slots x {x.element_size()} B) at "
+                f"{gather / (t * 1e-3) / 1e12:.3f} TB/s; {blocks.n_blocks} chunk blocks")
 
     sell_case(hyb.rest, x64, "hybrid rest C=8 f32 val, f64 x", timed=True)
     for vd in VALUE_DTYPES:
@@ -471,6 +495,14 @@ def main(argv=None) -> int:
     v0 = np.random.default_rng(1).standard_normal(args.n)
     plan = SpMVPlan.compile(hyb, PlanConfig())
     check(plan.report.kernel == "cuda", f"hybrid plan picked {plan.report.kernel}")
+    # the SELL kernel adds into the DIA output: the reference's composition,
+    # the two kernels' outputs added, bit for bit
+    ctx = R.KernelContext(device=dev)
+    fd = R.build(hyb.dia, "dia", "spmv", "cuda", ctx).fn
+    fs = R.build(hyb.rest, "sell", "spmv", "cuda", ctx).fn
+    check(torch.equal(plan(x64), fd(x64) + fs(x64)),
+          "main path: the fused hybrid SpMV is not the DIA output plus the SELL output")
+    del fd, fs
     def timed_lanczos(reorthogonalize: bool):
         """Lanczos through the plan, with CUDA events around each SpMV;
         returns the result, the SpMV times (ms) and the wall time (ms)."""
@@ -578,8 +610,15 @@ def main(argv=None) -> int:
         name = str(dt).replace("torch.", "")
         err = compare("stream_triad", f"n={args.triad_n} {name} vs plain", k(), p())
         compare("stream_triad", f"n={args.triad_n} {name} vs torch.addcmul", k(), lib())
-        ms = time_ms(torch, k)
-        tri[name] = {"ms": ms, "plain_ms": time_ms(torch, p), "library_ms": time_ms(torch, lib),
+        check(torch.equal(k(), p()), f"stream_triad {name}: not bitwise the plain version")
+        # kernel and library in turns (kernel, library, library, kernel), the
+        # better of each pair: the first timing after a pause runs slow
+        t_k, t_l = [], []
+        for fn_, ts in ((k, t_k), (lib, t_l), (lib, t_l), (k, t_k)):
+            ts.append(time_ms(torch, fn_))
+        ms = min(t_k)
+        tri[name] = {"ms": ms, "plain_ms": time_ms(torch, p), "library_ms": min(t_l),
+                     "ms_turns": t_k, "library_ms_turns": t_l,
                      "max_abs_err": err, "bytes": 4 * args.triad_n * a.element_size()}
         if dt == torch.float32:
             bnd, by = bound_ms(H100, tri[name]["bytes"], 2 * args.triad_n, name)
@@ -588,6 +627,9 @@ def main(argv=None) -> int:
                    plain_ms=tri[name]["plain_ms"], bound_ms=bnd, bound_by=by,
                    library_ms=tri[name]["library_ms"],
                    shape=f"o = b + a*c, n = {args.triad_n} f32 (library: torch.addcmul)")
+        else:
+            record("stream_triad", ms_f64=ms, plain_f64_ms=tri[name]["plain_ms"],
+                   library_f64_ms=tri[name]["library_ms"])
         del a, b, c
     CB.reset_launch_counts()
     chip = MB.card_chip(dev, n=args.triad_n)
@@ -606,7 +648,8 @@ def main(argv=None) -> int:
     log(f"[stream] triad n={args.triad_n}: {chip.hbm_bytes_per_s / 1e12:.4f} TB/s f32 "
         f"({100 * share:.1f} % of 3.35), {bw64 / 1e12:.4f} TB/s f64 ({100 * share64:.1f} %); "
         f"kernel {tri['float32']['ms']:.4f} ms vs torch.addcmul "
-        f"{tri['float32']['library_ms']:.4f} ms (f32); {counts['stream_triad']} launches "
+        f"{tri['float32']['library_ms']:.4f} ms (f32), {tri['float64']['ms']:.4f} vs "
+        f"{tri['float64']['library_ms']:.4f} ms (f64); {counts['stream_triad']} launches "
         "in card_chip()")
 
     # --- 6. microbenchmarks: Table 1 and the gather split (kernel 9) ----------
@@ -626,14 +669,17 @@ def main(argv=None) -> int:
     ga64, gx64 = ga.double(), gx.double()
     compare("gather_scp", f"IS k=8 n={nm} f64", GB.gather_scp(ga64, gi, gx64),
             GB.gather_scp_plain(ga64, gi, gx64))
-    # a, idx read and o written once each, and every touched element of x once
-    n_touch = int(np.unique(ind).size)
-    bnd, by = bound_ms(H100, 3 * nm * 4 + n_touch * 4, nm, "float32")
+    # a, idx read and o written once each, and every touched 32-byte sector
+    # of x once: at stride 8 each touched f32 value costs a whole sector (the
+    # access-granule penalty the phase measures)
+    n_sect = int(np.unique(ind.astype(np.int64) * 4 // 32).size)
+    bnd, by = bound_ms(H100, 3 * nm * 4 + n_sect * 32, nm, "float32")
     record("gather_scp", route="cuda", source="src/repro_torch/csrc/gather_bench.cu",
            replaces="src/repro/kernels/gather_bench.py:59", max_abs_err=err,
            ms=time_ms(torch, k), plain_ms=time_ms(torch, p), bound_ms=bnd, bound_by=by,
-           library_ms=None, shape=f"o = a * x[idx], constant stride 8, n = {nm} f32, "
-                                  f"x {nm * 8} f32")
+           library_ms=None, x_sectors=n_sect,
+           shape=f"o = a * x[idx], constant stride 8, n = {nm} f32, x {nm * 8} f32 "
+                 f"({n_sect} 32-byte sectors touched)")
     CB.reset_launch_counts()
     split = MB.run_gather_split(n=nm, strides=(1, 8), bernoulli_k=8, device=dev)
     counts = CB.launch_counts()
@@ -1141,6 +1187,8 @@ def main(argv=None) -> int:
         lib_ms = "none" if kr["library_ms"] is None else f"{kr['library_ms']:.4f}"
         if "library_f32_ms" in kr:
             lib_ms += f", f32 {kr['library_f32_ms']:.4f}"
+        if "library_f64_ms" in kr:
+            lib_ms += f"; f64 kernel {kr['ms_f64']:.4f}, library {kr['library_f64_ms']:.4f}"
         log(f"[kernel] {kr['name']:12s} {kr['ms']:.4f} ms (plain {kr['plain_ms']:.4f}, "
             f"library {lib_ms}, bound {kr['bound_ms']:.4f} by {kr['bound_by']}, "
             f"{kr['bound_ms_at_measured_bw']:.4f} at the measured triad rate); "

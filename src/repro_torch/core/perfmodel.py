@@ -450,7 +450,14 @@ def balance_of(fmt_obj, am: AccessModel | None = None, backend: str = "torch",
 #: run PERF.md section 6 records as the first of that kernel.  bsr is
 #: refitted for the ring BELL kernel: 0.683, ``fitted_h100_bsr`` of
 #: ``chip_smoke.py`` phase 9c on the same card and limit (3.057 TB/s
-#: measured), the run PERF.md section 6 records for that kernel.
+#: measured), the run PERF.md section 6 records for that kernel.  sell is
+#: refitted for the chunk-block SELL kernel: 0.567, the ``fitted_h100``
+#: geomean of phase 7 on the same card and limit (3.026 TB/s measured;
+#: surrogate 0.519, laplacian 0.938, power law 0.374), the run PERF.md
+#: section 6 records for that kernel.  hybrid keeps 0.421: its refit there
+#: (0.459, from surrogate 0.395 and laplacian 0.533) would make
+#: ``format="auto"`` pick the hybrid plan on the surrogate, 26 % slower
+#: than the csr plan.
 EXEC_EFFICIENCY = {
     "tpu": {
         "csr": 0.10, "coo": 0.08, "jds": 0.15, "ell": 0.90,
@@ -464,7 +471,7 @@ EXEC_EFFICIENCY = {
     },
     "h100": {
         "csr": 0.645, "jds": 0.201, "ell": 0.280,
-        "sell": 0.330, "hybrid": 0.421, "dia": 0.619,
+        "sell": 0.567, "hybrid": 0.421, "dia": 0.619,
         "matrix_free": 0.320, "bsr": 0.683,
     },
 }

@@ -21,12 +21,17 @@ from . import cuda_build as CB
 
 _FLOATS = (torch.float32, torch.float64)
 _TRIAD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
 _GATHER_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
     ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
 
-#: resident blocks of 256 threads per SM that a grid-stride pass asks for
-#: (8 x 256 = 2048 threads, the SM's maximum)
+#: vectors of each array one thread of the triad loads before its first
+#: store (``kTriadUnroll`` in gather_bench.cu): a block's tile is
+#: ``TRIAD_UNROLL * 256`` vectors of 16 bytes
+TRIAD_UNROLL = 8
+
+#: resident blocks of 256 threads per SM that the gather's grid-stride pass
+#: asks for (8 x 256 = 2048 threads, the SM's maximum)
 BLOCKS_PER_SM = 8
 
 _SMS: dict = {}
@@ -34,7 +39,8 @@ _SMS: dict = {}
 
 def stream_blocks(device: torch.device, work: int) -> int:
     """Grid of a grid-stride pass over ``work`` items: enough blocks to fill
-    every SM once, never more than the work needs."""
+    every SM once, never more than the work needs.  (The triad sizes its own
+    grid to the work: one tile of ``TRIAD_UNROLL`` x 256 vectors a block.)"""
     if device not in _SMS:
         _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(-(-work // 256), _SMS[device] * BLOCKS_PER_SM))
@@ -71,12 +77,10 @@ def stream_triad(a, b, c):
         raise ValueError(f"a, b, c lengths differ: {n}, {b.shape[0]}, {c.shape[0]}")
     o = torch.empty_like(a)
     vec = int(all(t.data_ptr() % 16 == 0 for t in (a, b, c, o)))
-    width = 16 // a.element_size() if vec else 1
     fn = CB.kernel_function("stream_triad", _TRIAD_ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(int(dtype == torch.float64), CB.ptr(a), CB.ptr(b), CB.ptr(c),
-                CB.ptr(o), n, vec, stream_blocks(dev, -(-n // width)),
-                CB.stream_handle(dev))
+                CB.ptr(o), n, vec, CB.stream_handle(dev))
     CB.raise_on_error("stream_triad", rc)
     CB.count_launch("stream_triad")
     return o

@@ -1,7 +1,8 @@
 """Hybrid DIA + SELL entries: compositions of the two formats' entries.
 
-The ``cuda`` SpMV adds the DIA kernel's and the SELL kernel's outputs, as
-the reference's Pallas hybrid composes its DIA and SELL kernels.  There is
+The ``cuda`` SpMV runs the DIA kernel, then the SELL kernel with the DIA
+output as its ``add_to``: the same sum, bit for bit, as the reference's
+Pallas hybrid, which adds its DIA and SELL kernels' outputs.  There is
 no ``cuda`` SpMM, as the reference has no Pallas hybrid SpMM (the DIA part
 has no multi-vector kernel): the SpMM runs the ``torch`` composition.
 """
@@ -45,6 +46,13 @@ def _build_spmm_loop(m: HybridDIA, ctx) -> CompiledKernel:
 
 
 @register_kernel("hybrid", "spmv", "cuda",
-                 description="DIA kernel + SELL kernel, outputs added")
+                 description="DIA kernel, then the SELL kernel adding its rows into "
+                             "the DIA output in place")
 def _build_spmv_cuda(m: HybridDIA, ctx) -> CompiledKernel:
-    return _compose(KD._build_spmv_cuda, KS._build_spmv_cuda, m, ctx, "cuda")
+    fd = KD._build_spmv_cuda(m.dia, ctx).fn
+    if not m.rest.nnz:
+        return CompiledKernel(fd, "cuda")
+    fs = KS._build_spmv_cuda(m.rest, ctx).fn
+    # each real row is written by one thread of the SELL kernel, so the add
+    # runs in its store: no separate add pass, and no third (n,) buffer
+    return CompiledKernel(lambda x: fs(x, add_to=fd(x)), "cuda")

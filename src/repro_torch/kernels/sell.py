@@ -24,6 +24,7 @@ from .registry import CompiledKernel, KernelContext, on_device, register_kernel
 register_stat("sell_segment_ids")
 register_stat("sell_padded_views")
 register_stat("sell_chunk_schedule")
+register_stat("sell_chunk_blocks")
 
 #: integer dtype of each value width, for moving values as raw bits
 _BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -41,6 +42,13 @@ def sell_chunk_schedule(m: SELL) -> KP.ChunkSchedule:
     host-built and checked once per container."""
     return cached(m, "_chunk_schedule", "sell_chunk_schedule",
                   lambda: KP.chunk_schedule(_np(m.perm), m.C, m.shape[0]))
+
+
+def sell_chunk_blocks(m: SELL) -> KP.ChunkBlocks:
+    """The SpMV kernel's chunk blocks (``sell_spmv.ChunkBlocks``),
+    host-built and checked once per container."""
+    return cached(m, "_chunk_blocks", "sell_chunk_blocks",
+                  lambda: KP.sell_chunk_blocks(_np(m.chunk_ptr), _np(m.chunk_width), m.C))
 
 
 def padded_views(m: SELL) -> tuple[torch.Tensor, torch.Tensor]:
@@ -187,15 +195,21 @@ def _build_cuda(m: SELL, ctx, kernel, **kw) -> CompiledKernel:
     _check_indices(m)
     cp, cw, col, val, scale, perm = _operands(m, ctx)
     n, C = m.shape[0], m.C
-    return CompiledKernel(lambda x: kernel(cp, cw, col, val, scale, perm, x, n, C, **kw),
-                          "cuda")
+    return CompiledKernel(lambda x, **call_kw: kernel(cp, cw, col, val, scale, perm, x, n, C,
+                                                      **kw, **call_kw), "cuda")
 
 
 @register_kernel("sell", "spmv", "cuda",
-                 description="thread per chunk row, own chunk width, fused "
-                             "scale + inverse permutation")
+                 description="blocks of whole chunks, span streamed coalesced, rows "
+                             "summed from shared memory; fused scale + inverse "
+                             "permutation (+ add_to)")
 def _build_spmv_cuda(m: SELL, ctx) -> CompiledKernel:
-    return _build_cuda(m, ctx, KP.sell_spmv_arrays)
+    """The kernel on the container's cached ``ChunkBlocks``; the compiled
+    function also takes ``add_to`` (``sell_spmv_arrays``)."""
+    blocks = sell_chunk_blocks(m)
+    if ctx.device.type == "cuda":
+        blocks.on(ctx.device)  # to the card at plan compile, not on the first SpMV
+    return _build_cuda(m, ctx, KP.sell_spmv_arrays, chunk_blocks=blocks)
 
 
 @register_kernel("sell", "spmm", "cuda",

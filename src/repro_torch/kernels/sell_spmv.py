@@ -7,9 +7,12 @@ scale of a quantized container to the finished row sums, and undo the
 sigma permutation: ``y[perm[q]] = tile[q]`` for every real row.
 ``sell_spmv_arrays`` launches ``csrc/sell_spmv.cu`` and ``sell_spmm_arrays``
 ``csrc/sell_spmm.cu`` on CUDA tensors; on CPU tensors they run
-``sell_spmv_plain`` / ``sell_spmm_plain``.  The SpMM kernel visits the
-chunks in the order of a host-checked ``ChunkSchedule`` (original-row
-order) and tiles K as ``sell_spmm_launch`` says.
+``sell_spmv_plain`` / ``sell_spmm_plain``.  The SpMV kernel takes one block
+of whole chunks per CUDA block, from a host-checked ``ChunkBlocks``, and
+can add its rows into a given vector in place (``add_to``: the hybrid
+plan's DIA output).  The SpMM kernel visits the chunks in the order of a
+host-checked ``ChunkSchedule`` (original-row order) and tiles K as
+``sell_spmm_launch`` says.
 """
 from __future__ import annotations
 
@@ -23,10 +26,75 @@ from .accum import acc_dtype
 
 NAME = "sell_spmv"
 _ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [
-    ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_void_p]
 _MM_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9 + [
     ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
+
+
+#: stored slots (and rows) of one chunk block of the SpMV kernel: 2 loads
+#: in flight for each of a CUDA block's 256 threads (``kSellBudget`` in
+#: sell_spmv.cu)
+SELL_BUDGET = 512
+
+
+class ChunkBlocks:
+    """The SpMV kernel's partition of a SELL matrix's chunks into blocks of
+    whole chunks holding at most ``SELL_BUDGET`` stored slots and at most
+    ``SELL_BUDGET`` rows; a chunk over the budget gets a block of its own.
+    A run of whole chunks is one contiguous span of ``col_idx`` / ``val``
+    (chunk c is the ``(width_c, C)`` slab at ``chunk_ptr[c]``), and the
+    partition is refused unless the chunks lie back to back.  ``starts``
+    (int32, on the host) holds the ``n_blocks + 1`` first chunks: block b is
+    chunks ``[starts[b], starts[b + 1])``.  Built greedily and checked on the
+    host, once per container; ``on(device)`` copies it to a card once.
+    ``sell_spmv_arrays`` takes the partition in no other form, so every row
+    it launches on is written."""
+
+    def __init__(self, chunk_ptr, chunk_width, C: int):
+        cp = (chunk_ptr.cpu().numpy() if isinstance(chunk_ptr, torch.Tensor)
+              else np.asarray(chunk_ptr)).astype(np.int64)
+        cw = (chunk_width.cpu().numpy() if isinstance(chunk_width, torch.Tensor)
+              else np.asarray(chunk_width)).astype(np.int64)
+        nc, C = cw.shape[0], int(C)
+        if C < 1 or cp.shape != (nc + 1,) or cp[0] != 0 or \
+                not np.array_equal(np.diff(cp), cw * C):
+            raise ValueError("sell chunk blocks: the chunks are not contiguous "
+                             "(chunk_ptr[c + 1] - chunk_ptr[c] != chunk_width[c] * C)")
+        max_chunks = max(1, SELL_BUDGET // C)
+        starts, c0 = [0], 0
+        while c0 < nc:
+            # the last chunk c1 with cp[c1] - cp[c0] <= budget ends the block
+            c1 = int(np.searchsorted(cp, cp[c0] + SELL_BUDGET, side="right")) - 1
+            c1 = min(max(c1, c0 + 1), c0 + max_chunks, nc)
+            starts.append(c1)
+            c0 = c1
+        s = np.asarray(starts, np.int64)
+        chunks, slots = np.diff(s), cp[s[1:]] - cp[s[:-1]]
+        # every chunk in one block, each block within budget or one chunk alone
+        if s[-1] != nc or (chunks < 1).any() or ((chunks > 1) & (
+                (slots > SELL_BUDGET) | (chunks * C > SELL_BUDGET))).any():
+            raise ValueError("sell chunk blocks: the partition broke its budget")
+        self.n_chunks, self.C = nc, C
+        self.starts = torch.from_numpy(s.astype(np.int32))
+        self._on: dict = {}
+
+    @property
+    def n_blocks(self) -> int:
+        return self.starts.shape[0] - 1
+
+    def on(self, device) -> torch.Tensor:
+        """``starts`` on ``device``, copied there once."""
+        key = str(torch.device(device))
+        if key not in self._on:
+            self._on[key] = self.starts.to(device)
+        return self._on[key]
+
+
+def sell_chunk_blocks(chunk_ptr, chunk_width, C: int) -> ChunkBlocks:
+    """The SpMV kernel's chunk blocks (numpy or torch operands, any device)."""
+    return ChunkBlocks(chunk_ptr, chunk_width, C)
 
 
 #: bytes of each X row one K tile of the SpMM kernel covers (one grid row):
@@ -114,11 +182,22 @@ def sell_segment_ids(chunk_ptr: torch.Tensor, chunk_width: torch.Tensor,
     return chunk_of * C + pos % C
 
 
+def _check_add_to(add_to, n_rows: int, acc, dev):
+    if add_to is None:
+        return
+    CB.check_tensor(add_to, "add_to", dev, (acc,), 1)
+    if add_to.shape[0] != n_rows:
+        raise ValueError(f"add_to has {add_to.shape[0]} rows, expected {n_rows}")
+
+
 def sell_spmv_plain(chunk_ptr, chunk_width, col_idx, val, scale, perm, x,
-                    n_rows: int, C: int, seg=None):
+                    n_rows: int, C: int, seg=None, add_to=None):
     """Gather + ``index_add_`` into (nc*C,) tiles, scale, un-permute.
-    ``seg`` (``sell_segment_ids``) is derived when absent."""
+    ``seg`` (``sell_segment_ids``) is derived when absent.  With ``add_to``
+    (n_rows,) in the accumulator type, y is added into it in place and it is
+    returned."""
     acc = acc_dtype(val.dtype, x.dtype)
+    _check_add_to(add_to, n_rows, acc, x.device)
     if seg is None:
         seg = sell_segment_ids(chunk_ptr, chunk_width, C, col_idx.shape[0])
     prod = val.to(acc) * x.to(acc).index_select(0, col_idx)
@@ -127,8 +206,9 @@ def sell_spmv_plain(chunk_ptr, chunk_width, col_idx, val, scale, perm, x,
     if scale is not None:
         tiles = tiles * scale.to(acc).repeat_interleave(C)
     # perm[:n_rows] holds every real row once (pad rows sit at the end)
-    return torch.empty(n_rows, dtype=acc, device=x.device).index_copy_(
+    y = torch.empty(n_rows, dtype=acc, device=x.device).index_copy_(
         0, perm[:n_rows].long(), tiles[:n_rows])
+    return y if add_to is None else add_to.add_(y)
 
 
 def sell_spmm_plain(chunk_ptr, chunk_width, col_idx, val, scale, perm, X,
@@ -168,26 +248,45 @@ def _check_operands(chunk_ptr, chunk_width, col_idx, val, scale, perm, C, dev):
 
 
 def sell_spmv_arrays(chunk_ptr, chunk_width, col_idx, val, scale, perm, x,
-                     n_rows: int, C: int):
+                     n_rows: int, C: int, chunk_blocks: ChunkBlocks | None = None,
+                     add_to=None):
     """SELL SpMV: the CUDA kernel for a CUDA ``x``, the plain version for a
-    CPU ``x``.  Returns y (n_rows,) in original row order."""
+    CPU ``x``.  Returns y (n_rows,) in original row order.  ``chunk_blocks``
+    is the container's ``ChunkBlocks`` (a plan passes its cached one;
+    without it the partition is built here, from host copies of
+    ``chunk_ptr`` / ``chunk_width``).  With ``add_to`` (a contiguous
+    (n_rows,) tensor in the accumulator type, on x's device) the kernel
+    stores ``add_to[row] + y[row]`` into it in place and returns it."""
+    nc = chunk_width.shape[0]
+    if chunk_blocks is not None:
+        if not isinstance(chunk_blocks, ChunkBlocks):
+            raise TypeError(f"sell_spmv: chunk_blocks must be a ChunkBlocks "
+                            f"(sell_chunk_blocks(chunk_ptr, chunk_width, C)), got "
+                            f"{type(chunk_blocks).__name__}")
+        if (chunk_blocks.n_chunks, chunk_blocks.C) != (nc, C):
+            raise ValueError(f"sell_spmv: chunk_blocks cover {chunk_blocks.n_chunks} chunks "
+                             f"of {chunk_blocks.C} rows, the matrix has {nc} of {C}")
     if x.device.type == "cpu":
         return sell_spmv_plain(chunk_ptr, chunk_width, col_idx, val, scale,
-                               perm, x, n_rows, C)
+                               perm, x, n_rows, C, add_to=add_to)
     if x.device.type != "cuda":
         raise ValueError(f"sell_spmv: no kernel for device {x.device}")
     dev = x.device
     acc = acc_dtype(val.dtype, x.dtype)
     x = x.to(acc).contiguous()
     _check_operands(chunk_ptr, chunk_width, col_idx, val, scale, perm, C, dev)
-    nc = chunk_width.shape[0]
-    y = torch.empty(n_rows, dtype=acc, device=dev)
+    _check_add_to(add_to, n_rows, acc, dev)
+    if chunk_blocks is None:
+        chunk_blocks = sell_chunk_blocks(chunk_ptr, chunk_width, C)
+    blocks = chunk_blocks.on(dev)
+    y = torch.empty(n_rows, dtype=acc, device=dev) if add_to is None else add_to
     fn = CB.kernel_function(NAME, _ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(CB.value_code(val, "val"), int(acc == torch.float64),
                 CB.ptr(chunk_ptr), CB.ptr(chunk_width), CB.ptr(col_idx),
                 CB.ptr(val), CB.ptr(scale), CB.ptr(perm), CB.ptr(x), CB.ptr(y),
-                nc, C, n_rows, CB.stream_handle(dev))
+                int(add_to is not None), nc, C, n_rows, CB.ptr(blocks),
+                chunk_blocks.n_blocks, CB.stream_handle(dev))
     CB.raise_on_error(NAME, rc)
     CB.count_launch(NAME)
     return y

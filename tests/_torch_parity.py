@@ -226,3 +226,20 @@ def ref_sell_spmm_pallas(ref_c, X: np.ndarray) -> np.ndarray:
     if ref_c.scale is not None:
         tiles = tiles * jnp.asarray(ref_c.scale).astype(tiles.dtype)[:, None, None]
     return np.asarray(RK.sell_spmm_scatter(tiles, RS._perm_arg(ref_c), ref_c.shape[0]))
+
+
+def ref_sell_spmv_pallas(ref_c, x: np.ndarray) -> np.ndarray:
+    """The reference's Pallas SELL SpMV (interpreted, as the reference's own
+    tests run it), its per-chunk scale and ``sell_spmv_scatter``, on a
+    reference SELL container: y (n_rows,).  The chunk block is the largest
+    of 8, 4, 2, 1 that divides the chunk count."""
+    import jax.numpy as jnp
+    from repro.kernels import sell as RS
+    from repro.kernels import sell_spmv as RK
+    col3, val3, _ = ref_c.padded_views()
+    cb = next(b for b in (8, 4, 2, 1) if ref_c.n_chunks % b == 0)
+    tiles = RK.sell_spmv_arrays(jnp.asarray(col3), jnp.asarray(val3), jnp.asarray(x),
+                                chunk_block=cb, interpret=True)
+    if ref_c.scale is not None:
+        tiles = tiles * jnp.asarray(ref_c.scale).astype(tiles.dtype)[:, None]
+    return np.asarray(RK.sell_spmv_scatter(tiles, RS._perm_arg(ref_c), ref_c.shape[0]))

@@ -474,3 +474,169 @@ def test_cuda_csr_refuses_a_partition_it_did_not_check(cuda_device):
     with pytest.raises(ValueError, match="rows"):
         KP.csr_spmv_arrays(rp, col, val, None, x, KP.csr_row_blocks(m.row_ptr[:11]))
     assert CB.launch_counts()["csr_spmv"] == before
+
+
+# --- kernel 1, SELL SpMV on chunk blocks, and the hybrid's fused add -------------
+
+
+def _sell_c(name: str, C: int, sigma):
+    """``_sell`` at any chunk height C."""
+    if name == "ragged":
+        rp, col, val, shape = ragged_csr_arrays()
+        m = PF.CSR(*map(torch.from_numpy, (rp, col, val)), shape)
+    else:
+        m = port_matrix(name)
+    return PF.SELL.from_csr(m, C=C, sigma=m.shape[0] if sigma is None else sigma)
+
+
+def _sell_ops(m, dev):
+    return [None if t is None else t.to(dev) for t in
+            (m.chunk_ptr, m.chunk_width, m.col_idx, m.val, m.scale, m.perm)]
+
+
+#: (value dtype, x dtype): f64 values take an f64 x (the acc_dtype rule)
+_SELL_VX = [("f64", torch.float64)] + [
+    (vd, xdt) for vd in ("f32", "bf16", "f16", "fp8_e4m3", "int8")
+    for xdt in (torch.float64, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("add", (False, True), ids=("store", "add_to"))
+@pytest.mark.parametrize("vd,xdt", _SELL_VX, ids=str)
+@pytest.mark.parametrize("sigma", (1, 64, None), ids=("sigma1", "sigma64", "sigmaN"))
+@pytest.mark.parametrize("name,C", (("surrogate3000", 8), ("surrogate3000", 128),
+                                    ("ragged", 7), ("ragged", 8)), ids=str)
+def test_cuda_sell_spmv_chunk_blocks_on_the_card(cuda_device, name, C, sigma, vd, xdt, add):
+    from repro_torch.kernels import sell as KS
+    from repro_torch.kernels import sell_spmv as KP
+    m = PF.with_value_dtype(_sell_c(name, C, sigma), vd)
+    ops = _sell_ops(m, cuda_device)
+    n = m.shape[0]
+    blocks = KS.sell_chunk_blocks(m)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(m.shape[1])).to(
+        cuda_device, xdt)
+    acc = torch.float64 if torch.float64 in (xdt, m.val.dtype) else torch.float32
+    base = torch.from_numpy(np.random.default_rng(8).standard_normal(n)).to(cuda_device, acc)
+    before = CB.launch_counts()["sell_spmv"]
+    y1 = KP.sell_spmv_arrays(*ops, x, n, C, blocks)
+    y2 = KP.sell_spmv_arrays(*ops, x, n, C, blocks)
+    y3 = KP.sell_spmv_arrays(*ops, x, n, C)   # the partition built here
+    want = KP.sell_spmv_plain(*ops, x, n, C)
+    if add:
+        into = base.clone()
+        got = KP.sell_spmv_arrays(*ops, x, n, C, blocks, add_to=into)
+        # in place, and the same sum as adding the kernel's own output
+        assert got is into and torch.equal(got, base + y1)
+        assert _rel(got, KP.sell_spmv_plain(*ops, x, n, C, add_to=base.clone())) <= (
+            1e-12 if acc == torch.float64 else 1e-5)
+    torch.cuda.synchronize()
+    assert CB.launch_counts()["sell_spmv"] == before + 3 + add
+    # no atomics: the same bits on every call
+    assert torch.equal(y1, y2) and torch.equal(y1, y3)
+    assert y1.dtype == want.dtype == acc and torch.isfinite(y1).all()
+    assert _rel(y1, want) <= (1e-12 if acc == torch.float64 else 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_sell_spmv_lone_chunks_and_tall_chunks_on_the_card(cuda_device):
+    from repro_torch.kernels import sell_spmv as KP
+    # ragged C = 7: chunks of rows with thousands of nonzeros lie alone in
+    # their blocks; C = 300 is taller than a CUDA block (a thread a row)
+    for name, C in (("ragged", 7), ("surrogate3000", 300), ("ragged", 300)):
+        m = _sell_c(name, C, None)
+        blocks = KP.sell_chunk_blocks(m.chunk_ptr, m.chunk_width, C)
+        slots = np.diff(m.chunk_ptr.numpy()[blocks.starts.numpy()])
+        assert (np.diff(blocks.starts.numpy()) == 1).any()
+        assert C > 256 or (slots > KP.SELL_BUDGET).any()
+        ops = _sell_ops(m, cuda_device)
+        x = torch.from_numpy(np.random.default_rng(9).standard_normal(m.shape[1])).to(
+            cuda_device)
+        got = KP.sell_spmv_arrays(*ops, x, m.shape[0], C, blocks)
+        again = KP.sell_spmv_arrays(*ops, x, m.shape[0], C, blocks)
+        want = KP.sell_spmv_plain(*ops, x, m.shape[0], C)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and _rel(got, want) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_cuda_sell_spmv_blocks_over_the_budget_give_nan_rows(cuda_device):
+    from repro_torch.kernels import sell_spmv as KP
+    m = _sell_c("surrogate3000", 8, None)
+    ops = _sell_ops(m, cuda_device)
+    x = torch.ones(m.shape[1], dtype=torch.float64, device=cuda_device)
+    # the partition of as many empty chunks: budget // 8 chunks a block, each
+    # holding far more than the budget of slots here
+    blocks = KP.sell_chunk_blocks(np.zeros(m.n_chunks + 1, np.int64),
+                                  np.zeros(m.n_chunks, np.int32), 8)
+    assert blocks.n_blocks == -(-m.n_chunks // (KP.SELL_BUDGET // 8))
+    y = KP.sell_spmv_arrays(*ops, x, m.shape[0], 8, blocks)
+    torch.cuda.synchronize()
+    assert torch.isnan(y).all()
+
+
+@pytest.mark.cuda
+def test_cuda_sell_spmv_refuses_a_partition_it_did_not_check(cuda_device):
+    from repro_torch.kernels import sell_spmv as KP
+    m = _sell_c("surrogate3000", 8, 64)
+    ops = _sell_ops(m, cuda_device)
+    x = torch.ones(m.shape[1], dtype=torch.float64, device=cuda_device)
+    n = m.shape[0]
+    before = CB.launch_counts()["sell_spmv"]
+    with pytest.raises(TypeError, match="ChunkBlocks"):
+        KP.sell_spmv_arrays(*ops, x, n, 8, torch.tensor([0, 10], dtype=torch.int32,
+                                                        device=cuda_device))
+    with pytest.raises(ValueError, match="chunks"):
+        KP.sell_spmv_arrays(*ops, x, n, 8, KP.sell_chunk_blocks(
+            m.chunk_ptr[:11], m.chunk_width[:10], 8))
+    with pytest.raises(TypeError, match="add_to"):
+        KP.sell_spmv_arrays(*ops, x, n, 8, add_to=torch.zeros(n, device=cuda_device))
+    with pytest.raises(ValueError, match="add_to"):
+        KP.sell_spmv_arrays(*ops, x, n, 8, add_to=torch.zeros(
+            n, dtype=torch.float64, device=cuda_device)[::2])
+    assert CB.launch_counts()["sell_spmv"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vd,xdt", _SELL_VX, ids=str)
+def test_cuda_hybrid_fused_add_is_bitwise_the_composition(cuda_device, vd, xdt):
+    from repro_torch.kernels import registry as R
+    from repro_torch.core.formats import split_dia
+    m = PF.with_value_dtype(split_dia(port_matrix("surrogate3000")), vd)
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(m.shape[1])).to(
+        cuda_device, xdt)
+    plan = SpMVPlan.compile(m, PlanConfig(device=cuda_device))
+    assert plan.report.kernel == "cuda"
+    ctx = R.KernelContext(device=cuda_device)
+    fd = R.build(m.dia, "dia", "spmv", "cuda", ctx).fn
+    fs = R.build(m.rest, "sell", "spmv", "cuda", ctx).fn
+    before = CB.launch_counts()
+    got = plan(x)
+    after = CB.launch_counts()
+    # the reference's Pallas hybrid: the DIA kernel's output plus the SELL kernel's
+    want = fd(x) + fs(x)
+    torch.cuda.synchronize()
+    assert after["dia_spmv"] == before["dia_spmv"] + 1
+    assert after["sell_spmv"] == before["sell_spmv"] + 1
+    assert torch.equal(got, want) and torch.isfinite(got).all()
+
+
+# --- kernel 8, the STREAM triad: tiles and tails --------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", (0, 1, 2), ids=("aligned", "off1", "off2"))
+@pytest.mark.parametrize("tiles_n", ("1", "3", "below_tile", "tile+1", "3tiles+5"))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_cuda_triad_tiles_and_tails_on_the_card(cuda_device, dtype, tiles_n, offset):
+    from repro_torch.kernels import gather_bench as GB
+    tile = GB.TRIAD_UNROLL * 256 * (16 // torch.empty(0, dtype=dtype).element_size())
+    n = {"1": 1, "3": 3, "below_tile": tile - 7, "tile+1": tile + 1,
+         "3tiles+5": 3 * tile + 5}[tiles_n]
+    g = torch.Generator(device="cpu").manual_seed(n)
+    a, b, c = (torch.randn(n + offset, generator=g, dtype=dtype).to(cuda_device)[offset:]
+               for _ in range(3))
+    before = CB.launch_counts()["stream_triad"]
+    got = GB.stream_triad(a, b, c)
+    torch.cuda.synchronize()
+    assert CB.launch_counts()["stream_triad"] == before + 1
+    assert got.shape == (n,) and torch.equal(got, GB.stream_triad_plain(a, b, c))
