@@ -457,7 +457,11 @@ def balance_of(fmt_obj, am: AccessModel | None = None, backend: str = "torch",
 #: section 6 records for that kernel.  hybrid keeps 0.421: its refit there
 #: (0.459, from surrogate 0.395 and laplacian 0.533) would make
 #: ``format="auto"`` pick the hybrid plan on the surrogate, 26 % slower
-#: than the csr plan.
+#: than the csr plan.  matrix_free is refitted for the MfLaunch kernel
+#: (x unpadded, no pad copy a call): 0.802, the ``fitted_h100`` value of
+#: phase 7 on the same card and limit (3.033 TB/s measured), where the
+#: format is a candidate on one full-size matrix, laplacian_2d(1100,
+#: 1100); the run PERF.md section 6 calls chip run 2 of PR 17.
 EXEC_EFFICIENCY = {
     "tpu": {
         "csr": 0.10, "coo": 0.08, "jds": 0.15, "ell": 0.90,
@@ -472,7 +476,7 @@ EXEC_EFFICIENCY = {
     "h100": {
         "csr": 0.645, "jds": 0.201, "ell": 0.280,
         "sell": 0.567, "hybrid": 0.421, "dia": 0.619,
-        "matrix_free": 0.320, "bsr": 0.683,
+        "matrix_free": 0.802, "bsr": 0.683,
     },
 }
 

@@ -3,13 +3,20 @@
 For a ``core.formats.MatrixFreeOperator``, ``col = row + offset`` on every
 diagonal; a generated diagonal holds one constant under the periodic rule
 ``lo <= row % p < hi`` and streams nothing, a stored diagonal streams one
-dense lane.  x is zero-padded, so reads past either matrix edge are zeros.
-Accumulation runs in ascending offset order, as in the reference.
+dense lane.  Accumulation runs in ascending offset order, as in the
+reference.
 
 ``mf_spmv_arrays`` launches ``csrc/mf_spmv.cu`` on a CUDA tensor and runs
-``mf_spmv_plain`` on a CPU tensor.  Registry entries: ``(matrix_free,
-{spmv, spmm}, {torch, loop_reference, cuda})``; the ``cuda`` SpMM goes
-column by column over the SpMV kernel, as the reference's Pallas SpMM does.
+``mf_spmv_plain`` on a CPU tensor.  The kernel takes the operator's
+descriptor only as an ``MfLaunch``: packed and checked on the host once per
+operator (32-bit rows and columns, at most ``MAX_DIAGS`` diagonals, the
+divisor magic of every period, no quantized storage), copied to a card
+once.  The kernel reads x unpadded and masks columns outside the matrix in
+registers; the plain version and the ``torch`` and ``loop_reference``
+entries read a zero-padded x, as the reference does.  Registry entries:
+``(matrix_free, {spmv, spmm}, {torch, loop_reference, cuda})``; the
+``cuda`` SpMM goes column by column over the SpMV kernel, as the
+reference's Pallas SpMM does.
 """
 from __future__ import annotations
 
@@ -27,11 +34,24 @@ from .registry import CompiledKernel, KernelContext, register_kernel
 
 NAME = "mf_spmv"
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-             ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+
+#: diagonals one launch takes (``kMaxDiags`` in csrc/mf_spmv.cu), the
+#: default cap of ``MatrixFreeOperator.from_csr``
+MAX_DIAGS = 256
+#: storage dtypes the kernel takes: int8 and fp8 have no per-group scale
+#: home in a matrix-free operator
+KERNEL_VALUE_DTYPES = ("f64", "f32", "bf16", "f16")
+#: one diagonal of the kernel's descriptor (``struct MfDiag`` in
+#: csrc/mf_spmv.cu, 40 bytes)
+MF_DIAG = np.dtype([("off", "<i4"), ("lane", "<i4"), ("p", "<u4"), ("lo", "<u4"),
+                    ("hi", "<u4"), ("magic", "<u4"), ("shift", "<u4"),
+                    ("unused", "<u4"), ("gen", "<f8")])
+_LIMIT = 1 << 31  # rows, columns and offsets are 32-bit on the card
 
 register_stat("mf_tables")
+register_stat("mf_launch")
 
 
 def _round_gen(gv: float, value_dtype: str) -> float:
@@ -120,35 +140,140 @@ def mf_spmv_plain(data, desc, gen, x_pad, pad0: int, n: int):
     return y
 
 
-def mf_spmv_arrays(data, desc, gen, x_pad, pad0: int, n: int):
-    """Matrix-free SpMV: the CUDA kernel for a CUDA ``x_pad``, the plain
-    version for a CPU one."""
-    if x_pad.device.type == "cpu":
-        return mf_spmv_plain(data, desc, gen, x_pad, pad0, n)
-    if x_pad.device.type != "cuda":
-        raise ValueError(f"mf_spmv: no kernel for device {x_pad.device}")
-    dev = x_pad.device
-    acc = acc_dtype(data.dtype, x_pad.dtype)
-    x_pad = x_pad.to(acc).contiguous()
-    CB.check_tensor(data, "data", dev, None, 2)
-    CB.check_tensor(desc, "desc", dev, (torch.int32,), 2)
-    CB.check_tensor(gen, "gen", dev, (torch.float64,), 1)
-    CB.check_tensor(x_pad, "x_pad", dev, None, 1)
-    nd = desc.shape[0]
-    if desc.shape[1] != 5 or gen.shape[0] != nd:
-        raise ValueError(f"descriptor {tuple(desc.shape)} / {tuple(gen.shape)} "
-                         "is not (nd, 5) / (nd,)")
-    if data.shape[0] and data.shape[1] < n:
-        raise ValueError(f"stored lanes {tuple(data.shape)} shorter than {n} rows")
-    if pad0 < 0:
-        raise ValueError(f"pad0={pad0} < 0")
+def divisor_magic(p: int) -> tuple[int, int]:
+    """``(magic, shift)`` with ``row // p == (2 * row * magic >> 32) >>
+    shift`` for every ``0 <= row < 2^31``, magic below 2^32: the kernel's
+    phase ``row % p`` in one 32-bit multiply-high.  With ``l = ceil(log2
+    p)`` and ``magic = ceil(2^(31 + l) / p)``, ``magic * p - 2^(31 + l) < p
+    <= 2^l`` bounds the error of ``row * magic / 2^(31 + l)`` against ``row
+    / p`` below ``1 / p`` (Granlund and Montgomery's round-up method for
+    31-bit dividends)."""
+    if not 1 <= p < _LIMIT:
+        raise ValueError(f"mf_spmv: period {p} outside [1, 2^31)")
+    shift = (p - 1).bit_length()
+    return -(-(1 << (31 + shift)) // p), shift
+
+
+def mf_phase(rows: np.ndarray, p: int, magic: int, shift: int) -> np.ndarray:
+    """``rows % p`` as the kernel computes it from ``divisor_magic(p)``
+    (uint32 arithmetic, rows below 2^31)."""
+    r = np.asarray(rows, np.uint64)
+    q = (((r << np.uint64(1)) * np.uint64(magic)) >> np.uint64(32)) >> np.uint64(shift)
+    return (r - q * np.uint64(p)).astype(np.uint32)
+
+
+class MfLaunch:
+    """The kernel's descriptor of one operator: a ``MF_DIAG`` row per
+    diagonal in ascending offset order (offset, stored-lane index or -1,
+    period, bounds, divisor magic, generated constant rounded through the
+    storage dtype), built from ``mf_tables`` and checked on the host once:
+    rows, columns and offsets 32-bit, at most ``MAX_DIAGS`` diagonals, a
+    storage dtype the kernel takes.  ``on(device)`` copies the table to a
+    card once; the kernel stages it into shared memory once per CTA.
+    ``mf_spmv_arrays`` takes the descriptor in no other form, and checks at
+    each call only that its lanes and x have the operator's shapes."""
+
+    def __init__(self, op: MatrixFreeOperator):
+        if not isinstance(op, MatrixFreeOperator):
+            raise TypeError(f"MfLaunch: expected a MatrixFreeOperator, got "
+                            f"{type(op).__name__}")
+        if op.value_dtype not in KERNEL_VALUE_DTYPES:
+            raise TypeError(f"mf_spmv: storage {op.value_dtype!r} has no kernel "
+                            f"(quantized storage has no scale home); takes "
+                            f"{KERNEL_VALUE_DTYPES}")
+        n, ncols = op.shape
+        if not (0 <= n < _LIMIT and 0 <= ncols < _LIMIT):
+            raise ValueError(f"mf_spmv: shape {op.shape}: rows and columns must "
+                             "be below 2^31")
+        diags = mf_tables(op)
+        if len(diags) > MAX_DIAGS:
+            raise ValueError(f"mf_spmv: {len(diags)} diagonals > MAX_DIAGS={MAX_DIAGS}")
+        offs = [off for off, _ in diags]
+        if offs != sorted(set(offs)) or (offs and not -_LIMIT < offs[0] <= offs[-1] < _LIMIT):
+            raise ValueError("mf_spmv: offsets must ascend and fit 32 bits")
+        table = np.zeros(len(diags), MF_DIAG)
+        ks = 0
+        for k, (off, spec) in enumerate(diags):
+            if spec is None:
+                table[k] = (off, ks, 0, 0, 0, 0, 0, 0, 0.0)
+                ks += 1
+                continue
+            p, lo, hi, gvr = spec
+            magic, shift = divisor_magic(p) if p else (0, 0)
+            if p and not 0 <= lo <= hi <= p:
+                raise ValueError(f"mf_spmv: rule {lo} <= row % {p} < {hi} out of range")
+            table[k] = (off, -1, p, lo, hi, magic, shift, 0, gvr)
+        if ks != op.n_stored:
+            raise ValueError(f"mf_spmv: {ks} stored diagonals, the operator has "
+                             f"{op.n_stored}")
+        self.shape = (n, ncols)
+        self.n_stored = ks
+        self.storage = VALUE_DTYPES[op.value_dtype]
+        self.pads = mf_pads(op)
+        self.table = table
+        self.desc, self.gen = mf_pack_descriptor(diags)  # the plain version's form
+        self._on: dict = {}
+
+    @property
+    def n_diags(self) -> int:
+        return self.table.shape[0]
+
+    def on(self, device) -> torch.Tensor:
+        """The table's bytes (uint8) on ``device``, copied there once."""
+        key = str(torch.device(device))
+        if key not in self._on:
+            self._on[key] = torch.from_numpy(self.table.view(np.uint8)).to(device)
+        return self._on[key]
+
+    def check(self, data: torch.Tensor, x: torch.Tensor) -> None:
+        """Raise unless ``data`` holds this operator's lanes and ``x`` has
+        its columns."""
+        n, ncols = self.shape
+        if data.dim() != 2 or data.shape[0] != self.n_stored or data.shape[1] < n \
+                or data.dtype != self.storage:
+            raise ValueError(f"mf_spmv: lanes {tuple(data.shape)} {data.dtype} are not "
+                             f"this descriptor's ({self.n_stored}, {n}) {self.storage}")
+        if tuple(x.shape) != (ncols,):
+            raise ValueError(f"mf_spmv: x has shape {tuple(x.shape)}, the descriptor's "
+                             f"operator has {ncols} columns")
+
+
+def mf_launch(op: MatrixFreeOperator) -> MfLaunch:
+    """The operator's ``MfLaunch``, built once per container."""
+    return cached(op, "_mf_launch", "mf_launch", lambda: MfLaunch(op))
+
+
+def mf_spmv_arrays(data, launch: MfLaunch, x):
+    """Matrix-free SpMV of the operator ``launch`` describes, whose stored
+    lanes are ``data`` (``mf_data``): the CUDA kernel for a CUDA ``x``
+    (unpadded, cast only when its dtype is not the accumulator's), the plain
+    version on the zero-padded x for a CPU one."""
+    if not isinstance(launch, MfLaunch):
+        raise TypeError(f"mf_spmv: the descriptor must be an MfLaunch (mf_launch(op)), "
+                        f"got {type(launch).__name__}")
+    launch.check(data, x)
+    acc = acc_dtype(data.dtype, x.dtype)
+    if x.device.type == "cpu":
+        pad0, pad1 = launch.pads
+        return mf_spmv_plain(data, launch.desc, launch.gen, pad_x(x, pad0, pad1, acc),
+                             pad0, launch.shape[0])
+    if x.device.type != "cuda":
+        raise ValueError(f"mf_spmv: no kernel for device {x.device}")
+    dev = x.device
+    if data.device != dev or not data.is_contiguous():
+        raise ValueError(f"mf_spmv: lanes on {data.device} (contiguous: "
+                         f"{data.is_contiguous()}), x on {dev}")
+    if x.dtype != acc:
+        x = x.to(acc)
+    if not x.is_contiguous():
+        x = x.contiguous()
+    n, ncols = launch.shape
     y = torch.empty(n, dtype=acc, device=dev)
     fn = CB.kernel_function(NAME, _ARGTYPES)
     with torch.cuda.device(dev):
-        rc = fn(CB.value_code(data, "data"), int(acc == torch.float64),
-                CB.ptr(data), data.shape[1], CB.ptr(desc), CB.ptr(gen), nd,
-                CB.ptr(x_pad), x_pad.shape[0], pad0, CB.ptr(y), n,
-                CB.stream_handle(dev))
+        rc = fn(CB.value_code(data, "data"), int(acc == torch.float64), CB.ptr(data),
+                data.shape[1], CB.ptr(launch.on(dev)), launch.n_diags, CB.ptr(x), ncols,
+                CB.ptr(y), n, CB.stream_handle(dev))
     CB.raise_on_error(NAME, rc)
     CB.count_launch(NAME)
     return y
@@ -188,33 +313,40 @@ def mf_spmv_loop(op: MatrixFreeOperator, ctx: KernelContext):
     return fn
 
 
-def _executor(op: MatrixFreeOperator, ctx: KernelContext, spmv, desc_device):
-    """x -> spmv(data, desc, gen, x_pad, pad0, n).  The kernel reads the
-    descriptor on the device; the plain version reads it on the host (no
-    device-to-host copy per call)."""
+def _plain_executor(op: MatrixFreeOperator, ctx: KernelContext):
+    """x -> the plain version on the zero-padded x (the descriptor stays on
+    the host: no device-to-host copy per call)."""
     desc, gen = mf_pack_descriptor(mf_tables(op))
-    desc, gen = desc.to(desc_device), gen.to(desc_device)
     data = mf_data(op).to(ctx.device)
     pad0, pad1 = mf_pads(op)
     n = op.shape[0]
 
     def fn(x):
         acc = acc_dtype(data.dtype, x.dtype)
-        return spmv(data, desc, gen, pad_x(x, pad0, pad1, acc), pad0, n)
+        return mf_spmv_plain(data, desc, gen, pad_x(x, pad0, pad1, acc), pad0, n)
 
     return fn
+
+
+def _cuda_executor(op: MatrixFreeOperator, ctx: KernelContext):
+    """x -> the kernel: lanes and descriptor on the card from plan compile
+    on, x passed as it is."""
+    launch = mf_launch(op)
+    data = mf_data(op).to(ctx.device)
+    launch.on(ctx.device)
+    return lambda x: mf_spmv_arrays(data, launch, x)
 
 
 @register_kernel("matrix_free", "spmv", "torch",
                  description="generated diagonals: shifted slices + masks")
 def _build_spmv(op: MatrixFreeOperator, ctx) -> CompiledKernel:
-    return CompiledKernel(_executor(op, ctx, mf_spmv_plain, "cpu"), "torch")
+    return CompiledKernel(_plain_executor(op, ctx), "torch")
 
 
 @register_kernel("matrix_free", "spmm", "torch",
                  description="multi-vector shifted slices + masks")
 def _build_spmm(op: MatrixFreeOperator, ctx) -> CompiledKernel:
-    return CompiledKernel(_executor(op, ctx, mf_spmv_plain, "cpu"), "torch")
+    return CompiledKernel(_plain_executor(op, ctx), "torch")
 
 
 @register_kernel("matrix_free", "spmv", "loop_reference",
@@ -230,13 +362,12 @@ def _build_spmm_loop(op: MatrixFreeOperator, ctx) -> CompiledKernel:
 
 
 @register_kernel("matrix_free", "spmv", "cuda",
-                 description="thread per row; cols = row + offset in registers")
+                 description="rows a thread; cols = row + offset in registers, x unpadded")
 def _build_spmv_cuda(op: MatrixFreeOperator, ctx) -> CompiledKernel:
-    return CompiledKernel(_executor(op, ctx, mf_spmv_arrays, ctx.device), "cuda")
+    return CompiledKernel(_cuda_executor(op, ctx), "cuda")
 
 
 @register_kernel("matrix_free", "spmm", "cuda",
                  description="column by column over the SpMV kernel")
 def _build_spmm_cuda(op: MatrixFreeOperator, ctx) -> CompiledKernel:
-    return CompiledKernel(
-        spmm_by_columns(_executor(op, ctx, mf_spmv_arrays, ctx.device)), "cuda")
+    return CompiledKernel(spmm_by_columns(_cuda_executor(op, ctx)), "cuda")

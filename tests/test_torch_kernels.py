@@ -154,11 +154,12 @@ def _wrapper_cases():
     op = to_port(ref_container("matrix_free", "bf16"))
     desc, gen = matrix_free.mf_pack_descriptor(matrix_free.mf_tables(op))
     p0, p1 = matrix_free.mf_pads(op)
-    xm = dia_spmv.pad_x(torch.from_numpy(operand(op.shape[0], seed=8)), p0, p1,
-                        torch.float32)
+    xu = torch.from_numpy(operand(op.shape[0], seed=8))
+    xm = dia_spmv.pad_x(xu, p0, p1, torch.float32)
     data = matrix_free.mf_data(op)
+    launch = matrix_free.mf_launch(op)
     yield ("mf_spmv",
-           lambda: matrix_free.mf_spmv_arrays(data, desc, gen, xm, p0, op.shape[0]),
+           lambda: matrix_free.mf_spmv_arrays(data, launch, xu),
            lambda: matrix_free.mf_spmv_plain(data, desc, gen, xm, p0, op.shape[0]))
     X = torch.from_numpy(operand(1200, 5, seed=9, dtype=np.float64))
     yield ("sell_spmm",
