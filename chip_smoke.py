@@ -67,7 +67,30 @@ repository configures:
    wgmma kernel in bf16 (per-path launch counters);
    (c) ``PlanConfig(format="bsr")`` and ``format="auto"`` on an 8192^2
    block-sparse matrix, every candidate timed (the fit of the ``h100`` bsr
-   efficiency), and a matrix held out of that fit.
+   efficiency), and a matrix held out of that fit;
+10. the corpus on the card: each of the twelve ``core.corpus`` specs in
+   every format it lists, plus ``coo``, plus ``matrix_free`` through
+   ``corpus.matrix_free_operator`` where the spec is flagged, compiled with
+   ``PlanConfig(format=...)``; ``plan(x)`` and ``plan.spmm(X)`` (K = 4, f64
+   and f32 x) against a host f64 product; kernels 1-6 each launched; the
+   cold ``format="auto"`` pick of each spec; and on one plan the
+   robustness checks: a ``plan.spmv`` fault poisons ``plan(x)``,
+   ``check_finite_columns`` flags the poisoned column of a ``plan.spmm``
+   fault, ``lanczos`` raises ``LanczosBreakdown``, and after
+   ``faults.reset()`` the plan returns its earlier bits;
+11. MatrixMarket at the paper's scale: ``write_mtx`` of the N = 1,201,200
+   surrogate into ``build/corpus/``, ``load_matrix(..., validate="strict")``
+   back (CSR arrays bitwise those in memory), a ``format="auto"`` plan and
+   64 Lanczos steps whose E0 equals the in-memory plan's bit for bit, with
+   the host seconds of the write, the read, the validation and the compile.
+
+Phase 7 ends with the measured warm path: every timed candidate of its
+seven matrices recorded into a ``core.tunedb.TuneDB`` (keyed by signature,
+``h100``, ``cuda``, value dtype), saved to
+``chiprun_out/tunedb_h100.json`` and reloaded; each matrix rebuilt as a
+new object must then compile, under ``PlanConfig(format="auto",
+tuning=db)``, to the measured fastest format; ``fit_efficiency_from_db`` is
+logged beside the committed ``h100`` table.
 
 It prints a ``kernels`` JSON line before the last line and ends with
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
@@ -259,11 +282,15 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(REPO / "src"))
     try:
+        from repro_torch.core import corpus as CORPUS
         from repro_torch.core import formats as F
+        from repro_torch.core import io as IO
         from repro_torch.core import matrices as M
+        from repro_torch.core import tunedb as TDB
+        from repro_torch.core import validate as V
         from repro_torch.core import microbench as MB
         from repro_torch.core import perfmodel as PM
-        from repro_torch.core.eigensolver import lanczos
+        from repro_torch.core.eigensolver import LanczosBreakdown, lanczos
         from repro_torch.core.plan import SpMVPlan, _convert_cached
         from repro_torch.core.planconfig import PlanConfig
         from repro_torch.kernels import cuda_build as CB
@@ -280,6 +307,7 @@ def main(argv=None) -> int:
             gemm_plan, grouped_gemm_arrays, grouped_gemm_plain, plan_groups)
         from repro_torch.models.sparse import (
             SparseLinear, advise_weight_format, magnitude_prune)
+        from repro_torch.testing import faults
         from repro_torch.utils.hw import H100
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is not beside this script "
@@ -851,7 +879,8 @@ def main(argv=None) -> int:
             pa = SpMVPlan.compile(obj, PlanConfig(chip=chip))
             t_eff1 = PM.predict(fmt, bal, max(1, mat.nnz), chip=chip).time_s * 1e3
             row = {"kernel": pa.report.kernel, "predicted_ms": choice.predicted_time_s[fmt] * 1e3,
-                   "model_eff1_ms": t_eff1, "measured_ms": time_ms(torch, lambda: pa(xm))}
+                   "model_eff1_ms": t_eff1, "measured_ms": time_ms(torch, lambda: pa(xm)),
+                   "convert_kwargs": choice.candidate_kwargs[fmt]}
             row["efficiency"] = t_eff1 / row["measured_ms"]
             row["model_error"] = row["predicted_ms"] / row["measured_ms"]
             if pa.report.kernel == "cuda":
@@ -908,6 +937,57 @@ def main(argv=None) -> int:
     log(f"[model] fitted h100 efficiencies (geomean over the full-size matrices "
         f"not held out): {json.dumps(out['model']['fitted_h100'])}; flat SELL "
         f"composite {t_flat:.4f} ms vs padded {t_pad:.4f} ms -> overhead {ovh:.3f}")
+
+    # --- 7b. the measured warm path: phase 7's timings as a tuning DB ----------
+    t0 = time.perf_counter()
+    tdb = TDB.TuneDB()
+    for mname, mat in model_mats.items():
+        cands = [TDB.Candidate(fmt, r["kernel"], r["measured_ms"] * 1e-3,
+                               r["predicted_ms"] * 1e-3, r["model_eff1_ms"] * 1e-3,
+                               dict(r["convert_kwargs"]))
+                 for fmt, r in model[mname]["candidates"].items()]
+        entry = tdb.record(mat, chip=chip, candidates=cands, matrix_name=mname, device=dev)
+        check(entry is not None and entry["platform"] == dev.type
+              and entry["chip_family"] == "h100", f"{mname}: not recorded under h100/{dev.type}")
+    db_path = tdb.save(Path(args.out).parent / "tunedb_h100.json")
+    db = TDB.open_db(db_path)
+    check(db is not tdb and db.entries.keys() == tdb.entries.keys(),
+          f"{db_path}: the reloaded DB does not hold the {len(tdb)} recorded entries")
+    record_s = time.perf_counter() - t0
+    warm = {}
+    for mname, mat in model_mats.items():
+        # a new object: the signature of the pattern, not the object, must match
+        fresh = F.CSR(mat.row_ptr.clone(), mat.col_idx.clone(), mat.val.clone(), mat.shape)
+        t1 = time.perf_counter()
+        plan_w = SpMVPlan.compile(fresh, PlanConfig(format="auto", chip=chip, tuning=db))
+        t_w = time.perf_counter() - t1
+        fastest = model[mname]["fastest"]
+        warm[mname] = {"pick": plan_w.report.format, "kernel": plan_w.report.kernel,
+                       "fastest": fastest, "compile_s": t_w}
+        if plan_w.report.format == fastest:
+            check(plan_w.report.kernel == model[mname]["candidates"][fastest]["kernel"],
+                  f"{mname}: the warm plan runs {plan_w.report.kernel}")
+        log(f"[tunedb] {mname}: warm pick {plan_w.report.format} ({plan_w.report.kernel}), "
+            f"measured fastest {fastest}, cold pick {model[mname]['pick']}; compile "
+            f"{t_w:.1f} s")
+    n_warm = sum(w["pick"] == w["fastest"] for w in warm.values())
+    check(n_warm == len(model_mats), f"warm path: the pick is the measured fastest on "
+                                     f"{n_warm} of {len(model_mats)}")
+    fit_db = PM.fit_efficiency_from_db(db, chip=chip)
+    # the cold picks of phase 7 above, made before the DB existed
+    cold_fit = [r["pick_is_fastest"] for k, r in model.items() if k not in held_out]
+    cold_held = [r["pick_is_fastest"] for k, r in model.items() if k in held_out]
+    out["model"]["warm"] = {"db": str(db_path), "entries": len(db), "matrices": warm,
+                            "pick_is_fastest": n_warm, "record_s": record_s,
+                            "cold_pick_is_fastest": [sum(cold_fit), len(cold_fit)],
+                            "cold_pick_is_fastest_held_out": [sum(cold_held), len(cold_held)],
+                            "fit_efficiency_from_db": fit_db,
+                            "committed_h100": dict(PM.EXEC_EFFICIENCY["h100"])}
+    log(f"[tunedb] {len(db)} entries in {db_path.name} (h100 / cuda); warm pick = measured "
+        f"fastest on {n_warm} of {len(warm)}; cold picks fastest on "
+        f"{sum(cold_fit)} of {len(cold_fit)} and {sum(cold_held)} of {len(cold_held)} held "
+        f"out; fit_efficiency_from_db {json.dumps({k: round(v, 4) for k, v in fit_db.items()})}"
+        f" vs committed {json.dumps(PM.EXEC_EFFICIENCY['h100'])}")
 
     # --- 8. batched SpMV through the SELL SpMM kernel ---------------------------
     plan_s = SpMVPlan.compile(ss, PlanConfig(chip=chip))  # sigma from select_sell_sigma
@@ -1283,6 +1363,144 @@ def main(argv=None) -> int:
         f"{kr3['library_ms']:.4f}, f32 values + f32 x {kr3['library_f32_ms']:.4f}; bound "
         f"{kr3['bound_ms']:.4f}); csr plans: " + "; ".join(
             f"{k_} {v:.4f} ms" for k_, v in csr_ms.items()))
+
+    # --- 10. the corpus on the card -------------------------------------------
+    t0 = time.perf_counter()
+    CB.reset_launch_counts()
+    corpus_out, rob_plan = {}, None
+    for name in CORPUS.names():
+        spec = CORPUS.get(name)
+        cm = CORPUS.build(name)
+        ch = cm.to_coo()
+        rows_h, cols_h = ch.rows.long(), ch.cols.long()
+        vals_h = ch.vals.double()
+        rng_c = np.random.default_rng(20)
+        xh = torch.from_numpy(rng_c.standard_normal(cm.shape[1]))
+        Xh = torch.from_numpy(rng_c.standard_normal((cm.shape[1], 4)))
+
+        def host_product(Vh):
+            """The f64 product of the stored values on the host."""
+            prod = (vals_h if Vh.dim() == 1 else vals_h[:, None]) * Vh.double()[cols_h]
+            return torch.zeros((cm.shape[0],) + tuple(Vh.shape[1:]),
+                               dtype=torch.float64).index_add_(0, rows_h, prod)
+
+        fmts = list(spec.formats) + ["coo"] + (["matrix_free"] if spec.matrix_free else [])
+        per_fmt = {}
+        for fmt in fmts:
+            if fmt == "matrix_free":
+                plan_c = SpMVPlan.compile(CORPUS.matrix_free_operator(name), PlanConfig())
+            else:
+                plan_c = SpMVPlan.compile(cm, PlanConfig(format=fmt))
+            check(plan_c.report.format == fmt, f"{name}: {fmt} plan is {plan_c.report.format}")
+            worst = 0.0
+            for xd in (torch.float64, torch.float32):
+                xv, Xv = xh.to(xd), Xh.to(xd)
+                y, Y = plan_c(xv.to(dev)), plan_c.spmm(Xv.to(dev))
+                for got, want in ((y, host_product(xv)), (Y, host_product(Xv))):
+                    _, rel = rel_err(torch, got.cpu(), want)
+                    tol = TOL[str(got.dtype).replace("torch.", "")]
+                    check(tuple(got.shape) == tuple(want.shape)
+                          and bool(torch.isfinite(got).all()) and rel <= tol,
+                          f"corpus {name} {fmt} ({plan_c.report.kernel}, x {xd}): rel err "
+                          f"{rel:.3e} > {tol:g} against the host f64 product")
+                    worst = max(worst, rel / tol)
+            per_fmt[fmt] = {"kernel": plan_c.report.kernel, "spmm_kernel":
+                            plan_c.report.spmm_kernel, "worst_err_over_tol": worst}
+            if name == "holstein_surrogate" and fmt == "sell":
+                rob_plan = plan_c
+        pick = SpMVPlan.compile(cm, PlanConfig(format="auto")).report.format
+        corpus_out[name] = {"shape": list(cm.shape), "nnz": cm.nnz, "auto_pick": pick,
+                            "plans": per_fmt}
+        log(f"[corpus] {name:18s} {cm.shape[0]:5d} rows {cm.nnz:6d} nnz: " + ", ".join(
+            f"{f} {r['kernel']}/{r['spmm_kernel']}" for f, r in per_fmt.items())
+            + f"; auto picks {pick}")
+    # the robustness path on the card, on one plan (SELL kernels 1 and 5)
+    n_r = rob_plan.report.shape[0]
+    rng_r = np.random.default_rng(21)
+    xr = torch.from_numpy(rng_r.standard_normal(n_r)).to(dev)
+    Xr = torch.from_numpy(rng_r.standard_normal((n_r, 4))).to(dev)
+    y0, Y0 = rob_plan(xr), rob_plan.spmm(Xr)
+    with faults.inject("plan.spmv", nonfinite=True) as spec_f:
+        yb = rob_plan(xr)
+    check(spec_f.fired == 1 and yb.device == y0.device and bool(torch.isnan(yb[0]))
+          and int(torch.isnan(yb).sum()) == 1, "faults: plan.spmv did not poison plan(x)")
+    try:
+        V.validate_vector(yb, n_r)
+        refused = False
+    except V.VectorValidationError:
+        refused = True
+    check(refused, "validate_vector passed a poisoned vector")
+    with faults.inject("plan.spmm", nonfinite=True, column=2):
+        Yb = rob_plan.spmm(Xr)
+    flags = V.check_finite_columns(Yb)
+    check(flags.device == Yb.device and flags.tolist() == [True, True, False, True],
+          f"check_finite_columns flagged {flags.tolist()}, not column 2")
+    with faults.inject("plan.spmv", nonfinite=True, times=None):
+        try:
+            lanczos(rob_plan, n_r, m=16, v0=rng_r.standard_normal(n_r))
+            broke = False
+        except LanczosBreakdown:
+            broke = True
+    check(broke, "lanczos on a poisoned plan did not raise LanczosBreakdown")
+    faults.reset()
+    check(torch.equal(rob_plan(xr), y0) and torch.equal(rob_plan.spmm(Xr), Y0),
+          "after faults.reset() the plan does not return its earlier bits")
+    counts = CB.launch_counts()
+    path_kernels = ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv", "sell_spmm", "bell_spmm")
+    for name in path_kernels:
+        check(counts[name] > 0, f"corpus phase: {name} was never launched")
+        record(name, launches_corpus=counts[name])
+    out["corpus"] = {"specs": corpus_out, "launches": {k: counts[k] for k in path_kernels},
+                     "robustness": {"plan": "holstein_surrogate sell",
+                                    "poisoned_column": 2, "lanczos_breakdown": broke},
+                     "host_s": time.perf_counter() - t0}
+    n_plans = sum(len(c["plans"]) for c in corpus_out.values())
+    log(f"[corpus] {len(corpus_out)} specs, {n_plans} plans within tolerance of the host f64 "
+        f"product (f64 and f32 x, SpMV and SpMM K = 4); launches " + ", ".join(
+            f"{k} {counts[k]}" for k in path_kernels) + "; faults: plan(x) poisoned, column 2 "
+        f"flagged, LanczosBreakdown raised, bits restored after reset; "
+        f"{out['corpus']['host_s']:.1f} s")
+
+    # --- 11. MatrixMarket at the paper's scale ---------------------------------
+    stem = f"holstein_surrogate_{args.n}"
+    secs = {}
+    t0 = time.perf_counter()
+    mtx_path = IO.write_mtx(REPO / "build" / "corpus" / f"{stem}.mtx", m)
+    secs["write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = IO.load_matrix(stem, search_dirs=[REPO / "build" / "corpus"], validate="strict")
+    secs["read"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check(V.validate_matrix(loaded, "strict") is loaded, f"{stem}: not valid")
+    secs["validate"] = time.perf_counter() - t0
+    check(loaded._source == str(mtx_path) and loaded.shape == m.shape and all(
+        getattr(loaded, f).dtype == getattr(m, f).dtype
+        and torch.equal(getattr(loaded, f), getattr(m, f))
+        for f in ("row_ptr", "col_idx", "val")),
+        f"{stem}: the CSR read back is not bitwise the one in memory")
+    t0 = time.perf_counter()
+    plan_l = SpMVPlan.compile(loaded, PlanConfig(format="auto"))
+    secs["compile"] = time.perf_counter() - t0
+    plan_m = SpMVPlan.compile(m, PlanConfig(format="auto"))
+    check((plan_l.report.format, plan_l.report.kernel) == (plan_m.report.format,
+                                                           plan_m.report.kernel),
+          f"{stem}: the file's plan is {plan_l.report.format}, the in-memory one "
+          f"{plan_m.report.format}")
+    res_l = lanczos(plan_l, args.n, m=args.lanczos_steps, v0=v0)
+    res_m = lanczos(plan_m, args.n, m=args.lanczos_steps, v0=v0)
+    e_l, e_m = float(res_l.eigenvalues[0]), float(res_m.eigenvalues[0])
+    check(e_l == e_m, f"{stem}: E0 {e_l!r} from the file, {e_m!r} in memory")
+    size = mtx_path.stat().st_size
+    mtx_path.unlink()
+    out["mtx"] = {"n": args.n, "nnz": m.nnz, "bytes": size, "host_s": secs,
+                  "round_trip_s": sum(secs.values()), "format": plan_l.report.format,
+                  "kernel": plan_l.report.kernel, "steps": res_l.n_spmv, "E0": e_l}
+    log(f"[mtx] {stem}: {m.nnz} entries, {size / 1e6:.1f} MB; host s: write "
+        f"{secs['write']:.1f}, read (load_matrix, strict) {secs['read']:.1f}, "
+        f"validate_matrix strict {secs['validate']:.1f}, compile (auto -> "
+        f"{plan_l.report.format}) {secs['compile']:.1f}; total {sum(secs.values()):.1f} s; "
+        f"CSR bitwise; {res_l.n_spmv} Lanczos steps, E0 {e_l:.12f} = in-memory plan's")
+    del loaded, plan_l, plan_m
 
     # --- report -----------------------------------------------------------------
     names = ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv", "sell_spmm", "stream_triad",

@@ -8,8 +8,10 @@ patterns.  Host numpy code, producing byte-for-byte the patterns of
 * ``holstein_hubbard_surrogate`` -- the Fig. 5 statistics at any N: ~14
   nnz/row, ~60 % of nnz in 12 dense secondary diagonals, the rest scattered
   over a band, symmetric.
-* ``laplacian_2d`` and ``power_law_rows`` -- the 5-point stencil and the
-  load-imbalance stressor.
+* ``laplacian_2d``, ``laplacian_3d`` and ``power_law_rows`` -- the 5- and
+  7-point stencils and the load-imbalance stressor.
+* ``random_sparse``, ``random_banded`` and ``dense_stripe`` -- the
+  corpus's no-structure baseline, random bands and near-dense stripe.
 * ``block_sparse_dense`` -- a dense array with random dense-block support,
   the pattern BSR stores without padding.
 """
@@ -202,6 +204,72 @@ def laplacian_2d(nx: int, ny: int, dtype=np.float64) -> CSR:
     return CSR.from_coo(COO(np.concatenate(rows_list).astype(np.int32),
                             np.concatenate(cols_list).astype(np.int32),
                             np.concatenate(vals_list).astype(dtype), (n, n)))
+
+
+def random_sparse(n_rows: int, n_cols: int, nnz_per_row: int, seed: int = 0,
+                  dtype=np.float32) -> CSR:
+    """Uniform random pattern with exactly ``nnz_per_row`` entries a row."""
+    rng = np.random.default_rng(seed)
+    k = min(nnz_per_row, n_cols)
+    cols = np.stack([rng.choice(n_cols, size=k, replace=False) for _ in range(n_rows)])
+    rows = np.repeat(np.arange(n_rows, dtype=np.int64), k)
+    vals = rng.standard_normal(n_rows * k).astype(dtype)
+    return CSR.from_coo(COO(rows.astype(np.int32), cols.reshape(-1).astype(np.int32),
+                            vals, (n_rows, n_cols)))
+
+
+def random_banded(n: int, half_bandwidth: int, density: float, seed: int = 0,
+                  dtype=np.float32) -> CSR:
+    """Every diagonal within ``half_bandwidth`` of the main one, each entry
+    kept with probability ``density``."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(n, dtype=np.int64)
+    rows_list, cols_list = [], []
+    for off in range(-half_bandwidth, half_bandwidth + 1):
+        lo, hi = max(0, -off), min(n, n - off)
+        ii = i[lo:hi][rng.random(hi - lo) < density]
+        rows_list.append(ii)
+        cols_list.append(ii + off)
+    rows = np.concatenate(rows_list)
+    cols = np.concatenate(cols_list)
+    vals = rng.standard_normal(len(rows)).astype(dtype)
+    return CSR.from_coo(COO(rows.astype(np.int32), cols.astype(np.int32), vals, (n, n)))
+
+
+def laplacian_3d(nx: int, ny: int, nz: int, dtype=np.float64) -> CSR:
+    """Standard 7-point stencil on an nx x ny x nz grid: the +-nx*ny
+    couplings put the outer diagonals a plane away."""
+    n = nx * ny * nz
+    idx = np.arange(n, dtype=np.int64)
+    coords = (idx % nx, (idx // nx) % ny, idx // (nx * ny))
+    rows_list, cols_list, vals_list = [idx], [idx], [np.full(n, 6.0)]
+    for coord, extent, stride in zip(coords, (nx, ny, nz), (1, nx, nx * ny)):
+        for sgn in (+1, -1):
+            ok = (coord + sgn >= 0) & (coord + sgn < extent)
+            rows_list.append(idx[ok])
+            cols_list.append(idx[ok] + sgn * stride)
+            vals_list.append(np.full(int(ok.sum()), -1.0))
+    return CSR.from_coo(COO(np.concatenate(rows_list).astype(np.int32),
+                            np.concatenate(cols_list).astype(np.int32),
+                            np.concatenate(vals_list).astype(dtype), (n, n)))
+
+
+def dense_stripe(n: int, stripe_width: int, stripe_start: int | None = None,
+                 seed: int = 0, dtype=np.float32) -> CSR:
+    """Near-dense vertical stripe of ``stripe_width`` columns plus the main
+    diagonal where the stripe does not cover it: constant row length, one
+    small fully reused window of x."""
+    rng = np.random.default_rng(seed)
+    c0 = (n - stripe_width) // 2 if stripe_start is None else stripe_start
+    if not (0 <= c0 and c0 + stripe_width <= n):
+        raise ValueError(f"stripe [{c0}, {c0 + stripe_width}) outside {n} columns")
+    i = np.arange(n, dtype=np.int64)
+    diag = i[(i < c0) | (i >= c0 + stripe_width)]
+    rows = np.concatenate([diag, np.repeat(i, stripe_width)])
+    cols = np.concatenate([diag, np.tile(np.arange(c0, c0 + stripe_width, dtype=np.int64), n)])
+    vals = rng.standard_normal(len(rows)).astype(dtype)
+    vals[: len(diag)] += 4.0
+    return CSR.from_coo(COO(rows.astype(np.int32), cols.astype(np.int32), vals, (n, n)))
 
 
 def power_law_rows(n: int, n_cols: int, mean_nnz: float = 8.0, alpha: float = 1.5,

@@ -510,9 +510,12 @@ def exec_efficiency(chip: ChipSpec) -> dict:
 @dataclass(frozen=True)
 class FormatChoice:
     """Outcome of ``select_format``: the pick (a ``formats.convert`` key),
-    the predicted seconds of every candidate, the conversion kwargs of the
-    pick, the ``matrix_stats`` snapshot used, and the balance (bytes/Flop)
-    of every candidate with the conversion kwargs that packs it."""
+    the predicted seconds of every candidate (a warm pick: the measured
+    seconds the tuning DB recorded), the conversion kwargs of the pick, the
+    ``matrix_stats`` snapshot used, the balance (bytes/Flop) of every
+    candidate with the conversion kwargs that packs it (cold path only),
+    and ``source``: ``"model"`` (cold path) or ``"measured"`` (a fresh
+    tuning-DB entry decided)."""
 
     format: str
     predicted_time_s: dict
@@ -520,6 +523,7 @@ class FormatChoice:
     stats: dict
     balances: dict = field(default_factory=dict)
     candidate_kwargs: dict = field(default_factory=dict)
+    source: str = "model"
 
 
 def predict_exec(fmt: str, balance: float, nnz: int, chip: ChipSpec = H100,
@@ -547,24 +551,27 @@ def select_format(m, *, am: AccessModel | None = None, chip: ChipSpec = H100,
                   efficiency: dict | None = None, max_dia_diags: int = 256,
                   bsr_block: tuple[int, int] = (8, 128),
                   backend: str = "auto", device=None, tuning=None) -> FormatChoice:
-    """Pick the storage format for a concrete CSR/COO container (the cold
-    path of the reference's selector): exact pad ratios, counted diagonal
-    occupancy, matrix-free detection, counted BSR block fill, and every
-    candidate's balance through the execution-aware roofline
-    (``predict_exec``).  BSR is a candidate when the shape tiles by
+    """Pick the storage format for a concrete CSR/COO container: exact pad
+    ratios, counted diagonal occupancy, matrix-free detection, counted BSR
+    block fill, and every candidate's balance through the execution-aware
+    roofline (``predict_exec``).  BSR is a candidate when the shape tiles by
     ``bsr_block`` and the populated blocks are at least a quarter full.
 
     ``backend`` is the stream-byte regime (``"auto"`` = the executor on
     ``device``; see ``resolve_stream_backend``).  ``sigma=None`` autotunes
-    the SELL window (``select_sell_sigma``).  ``tuning`` (the measured warm
-    path) waits for the tuning DB (ROADMAP.md, queue 1, item 8) and raises.
+    the SELL window (``select_sell_sigma``).
+
+    ``tuning`` (a ``core.tunedb.TuneDB`` or a path to one) is the measured
+    warm path: an entry of this matrix's signature, keyed by ``chip``'s
+    family, the platform of ``device`` and the stored value dtype, whose
+    candidates are still buildable there, decides the pick directly -- the
+    measured-fastest format within ``allowed`` (``source ==
+    "measured"``).  Without such an entry the DB's refitted efficiencies,
+    if it holds any for the family and no ``efficiency`` is given, refine
+    the roofline ranking.  ``tuning=None`` is the cold path.
     """
     from . import formats as F
 
-    if tuning is not None:
-        raise NotImplementedError(
-            "select_format(tuning=...) needs the tuning DB, which is not ported "
-            "yet: ROADMAP.md, queue 1, item 8")
     if isinstance(m, F.COO):
         m = F.CSR.from_coo(m)
     if not isinstance(m, F.CSR):
@@ -572,6 +579,16 @@ def select_format(m, *, am: AccessModel | None = None, chip: ChipSpec = H100,
         if name is None:
             raise TypeError(f"select_format: unsupported container {type(m).__name__}")
         return FormatChoice(name, {}, {}, {})
+
+    if tuning is not None:
+        from . import tunedb as TDB
+        db = TDB.open_db(tuning)
+        hit = db.lookup_format(m, chip=chip, allowed=allowed, device=device)
+        if hit is not None:
+            fmt, kw, times = hit
+            return FormatChoice(fmt, times, kw, F.matrix_stats(m), source="measured")
+        if efficiency is None:
+            efficiency = db.efficiency_for(chip)
 
     if am is None:
         am = access_model_for(m)
@@ -654,6 +671,38 @@ def select_format(m, *, am: AccessModel | None = None, chip: ChipSpec = H100,
     best = min(preds, key=preds.get)
     return FormatChoice(best, preds, kwargs[best], stats, balances=balances,
                         candidate_kwargs={f: kwargs[f] for f in balances})
+
+
+def fit_efficiency_from_db(db, *, chip: ChipSpec | None = None,
+                           family: str | None = None,
+                           clamp: tuple = (0.01, 1.5)) -> dict:
+    """Refit the ``EXEC_EFFICIENCY`` factors from tuning-DB measurements.
+
+    Every recorded candidate achieved ``t_model_eff1_s / t_measured_s`` of
+    the modelled bandwidth; per format the fitted factor is the geometric
+    mean of those over matrices and backends, clamped to ``clamp``.  Only
+    entries of the requested family count (``family`` wins over ``chip``;
+    default: the family of ``H100``); formats with no measurement keep the
+    committed value, so the table is complete.
+
+    Returns:
+        {format: efficiency} -- the committed table overlaid with the fit.
+    """
+    fam = family if family is not None else chip_family(chip or H100)
+    ratios: dict[str, list] = {}
+    for entry in db.entries.values():
+        if entry.get("chip_family") != fam:
+            continue
+        for c in entry.get("candidates", ()):
+            t, t1 = c.get("t_measured_s"), c.get("t_model_eff1_s")
+            if t and t1 and t > 0 and t1 > 0:
+                ratios.setdefault(c["format"], []).append(t1 / t)
+    fitted = dict(EXEC_EFFICIENCY.get(fam, EXEC_EFFICIENCY[DEFAULT_CHIP_FAMILY]))
+    lo, hi = clamp
+    for fmt, rs in ratios.items():
+        geo = float(np.exp(np.mean(np.log(rs))))
+        fitted[fmt] = float(np.clip(geo, lo, hi))
+    return fitted
 
 
 # ---------------------------------------------------------------------------

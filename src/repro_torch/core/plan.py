@@ -13,12 +13,18 @@ container into a reusable executor:
    the container's arrays -- once, at compile time;
 3. the registry picks the kernel: ``backend="auto"`` takes the ``cuda``
    kernel whenever its probe accepts the operand (on a CUDA device) and
-   otherwise ranks the accepting entries by their cost hooks; an explicit
-   backend whose entry is missing
-   or refuses the operand falls back to ``torch``, and ``report.kernel``
-   shows which ran;
+   otherwise ranks the accepting entries by their cost hooks (or by the
+   measured times of a tuning DB); an explicit backend whose entry is
+   missing or refuses the operand falls back to ``torch``, and
+   ``report.kernel`` shows which ran;
 4. plans are memoized on the container, so ``compile`` is free after the
    first call.
+
+``validate`` checks (or repairs) a CSR/COO source before anything else,
+and ``tuning`` (a ``core.tunedb.TuneDB``) lets measured winners decide
+``format="auto"`` and the backend (the warm path).  ``plan(x)`` and
+``plan.spmm(X)`` pass the ``plan.spmv`` / ``plan.spmm`` fault points of
+``testing.faults``: free when disarmed.
 
 ``plan.report`` records what was decided and what the roofline predicts
 for it (balance, GFlop/s, seconds, the bound), with the byte regime of the
@@ -32,12 +38,13 @@ import numpy as np
 import torch
 
 from ..kernels import registry as R
+from ..testing import faults
 from ..utils.hw import H100, ChipSpec, default_device
 from . import perfmodel as PM
 from .formats import BSR, COO, CSR, DIA, ELL, JDS, SELL, HybridDIA, MatrixFreeOperator
-from .planconfig import PlanConfig
+from .planconfig import PlanConfig, coerce_config
 
-_FMT_NAMES = {CSR: "csr", ELL: "ell", JDS: "jds", SELL: "sell", BSR: "bsr",
+_FMT_NAMES = {COO: "coo", CSR: "csr", ELL: "ell", JDS: "jds", SELL: "sell", BSR: "bsr",
               DIA: "dia", HybridDIA: "hybrid", MatrixFreeOperator: "matrix_free"}
 
 
@@ -82,6 +89,10 @@ class SpMVPlan:
                              f"{self.device}")
         return x
 
+    def _fire(self, op: str):
+        return faults.fire(f"plan.{op}", ctx={"op": op, "format": self.report.format,
+                                              "kernel": self.report.kernel})
+
     def spmv(self, x) -> torch.Tensor:
         """y = A @ x for x of shape (N,) on the plan's device; raises
         ValueError on a shape or device mismatch."""
@@ -89,7 +100,9 @@ class SpMVPlan:
         if tuple(x.shape) != (self.report.shape[1],):
             raise ValueError(f"x has shape {tuple(x.shape)}, expected "
                              f"({self.report.shape[1]},)")
-        return self.apply(x)
+        spec = self._fire("spmv")
+        y = self.apply(x)
+        return faults.poison(y, spec) if spec is not None else y
 
     def spmm(self, X) -> torch.Tensor:
         """Y = A @ X for X of shape (N, K)."""
@@ -97,7 +110,9 @@ class SpMVPlan:
         if X.dim() != 2 or X.shape[0] != self.report.shape[1]:
             raise ValueError(f"X has shape {tuple(X.shape)}, expected "
                              f"({self.report.shape[1]}, K)")
-        return self.apply_multi(X)
+        spec = self._fire("spmm")
+        Y = self.apply_multi(X)
+        return faults.poison(Y, spec) if spec is not None else Y
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         r = self.report
@@ -105,18 +120,26 @@ class SpMVPlan:
                 f"kernel={r.kernel}, device={r.device})")
 
     @staticmethod
-    def compile(matrix, config: PlanConfig | None = None) -> "SpMVPlan":
+    def compile(matrix, config: PlanConfig | None = None, **kwargs) -> "SpMVPlan":
         """Build (or fetch the memoized) plan for ``matrix`` under ``config``
         (a :class:`PlanConfig`; None is the default record, which runs on
-        the card and raises when there is none)."""
-        cfg = PlanConfig() if config is None else config
-        if not isinstance(cfg, PlanConfig):
-            raise TypeError(f"config must be a PlanConfig, got {type(cfg).__name__}")
+        the card and raises when there is none).  Bare kwargs are the
+        reference's deprecated aliases of the config's fields
+        (``planconfig.coerce_config``)."""
+        cfg = coerce_config(config, kwargs, api="SpMVPlan.compile")
         device = default_device(cfg.device)
         backend = _resolve_backend(cfg.backend)
+        validate = cfg.validate if cfg.validate is not None else "off"
+        if validate != "off":
+            from .validate import validate_matrix
+            matrix = validate_matrix(matrix, policy=validate)
+        tuning = None
+        if cfg.tuning is not None:
+            from .tunedb import open_db
+            tuning = open_db(cfg.tuning)
         if cfg.format is not None:
             matrix = resolve_format(matrix, cfg.format, chip=cfg.chip, am=cfg.am,
-                                    backend=backend, device=device,
+                                    backend=backend, device=device, tuning=tuning,
                                     sigma=1 if not cfg.permute else cfg.sigma,
                                     convert_kwargs=cfg.sell_kwargs())
         if cfg.value_dtype is not None:
@@ -125,7 +148,7 @@ class SpMVPlan:
         fmt = _FMT_NAMES.get(type(matrix))
         if fmt is None:
             raise TypeError(f"no plan for {type(matrix).__name__}")
-        key = (fmt, backend, str(device), cfg.chip, cfg.am)
+        key = (fmt, backend, str(device), cfg.chip, cfg.am, getattr(tuning, "token", None))
         cache = getattr(matrix, "_spmv_plans", None)
         if cache is None:
             cache = {}
@@ -133,28 +156,29 @@ class SpMVPlan:
         plan = cache.get(key)
         if plan is None:
             plan = cache[key] = _compile(matrix, fmt, backend, device, cfg.chip,
-                                         cfg.am)
+                                         cfg.am, tuning)
         return plan
 
 
 def resolve_format(matrix, format: str, *, chip: ChipSpec | None = None,
-                   am=None, backend: str = "auto", device=None,
+                   am=None, backend: str = "auto", device=None, tuning=None,
                    convert_kwargs: dict | None = None, **select_kw):
     """``matrix`` converted to ``format``: a CSR/COO source is converted
     (and the result cached on it); a container already in ``format``
     passes; any other container is refused.  ``"auto"`` converts a CSR/COO
     source to ``perfmodel.select_format``'s pick (with its own sigma) under
-    ``chip``, ``am`` and the stream regime of ``backend`` on ``device``;
-    any other container stands as the upstream choice."""
-    fmt = "coo" if isinstance(matrix, COO) else _FMT_NAMES.get(type(matrix))
+    ``chip``, ``am``, the stream regime of ``backend`` on ``device`` and,
+    warm, the measured winners of ``tuning``; any other container stands as
+    the upstream choice."""
+    fmt = _FMT_NAMES.get(type(matrix))
     if fmt is None:
         raise TypeError(f"no plan for {type(matrix).__name__}")
     if format == "auto":
         if fmt not in ("csr", "coo"):
             return matrix
-        src = CSR.from_coo(matrix) if isinstance(matrix, COO) else matrix
-        choice = PM.select_format(src, am=am, chip=chip or H100,
-                                  backend=backend, device=device, **select_kw)
+        src = _convert_cached(matrix, "csr", {}) if isinstance(matrix, COO) else matrix
+        choice = PM.select_format(src, am=am, chip=chip or H100, backend=backend,
+                                  device=device, tuning=tuning, **select_kw)
         return _convert_cached(matrix, choice.format, choice.convert_kwargs)
     if format == fmt:
         return matrix
@@ -177,10 +201,16 @@ def _convert_cached(matrix, fmt: str, kw: dict, value_dtype: str | None = None):
         src = CSR.from_coo(matrix) if isinstance(matrix, COO) else matrix
         if _FMT_NAMES.get(type(src)) == fmt:
             obj = src
+        elif fmt == "coo":
+            obj = src.to_coo()
         else:
             obj = convert(src, fmt, **kw)
         if value_dtype is not None:
             obj = with_value_dtype(obj, value_dtype)
+        if obj is not src:
+            # a converted container signs for the tuning DB through the
+            # pattern of the CSR it came from (tunedb.signature_of)
+            object.__setattr__(obj, "_tune_src", src)
         cache[key] = obj
     return obj
 
@@ -210,8 +240,8 @@ _LABEL_STREAM = {"cuda": "cuda", "torch": "torch", "loop": "loop_reference"}
 
 
 def _compile(matrix, fmt: str, backend: str, device: torch.device,
-             chip: ChipSpec, am) -> SpMVPlan:
-    ctx = R.KernelContext(device=device, chip=chip, am=am)
+             chip: ChipSpec, am, tuning=None) -> SpMVPlan:
+    ctx = R.KernelContext(device=device, chip=chip, am=am, tuning=tuning)
     ck_v = R.build(matrix, fmt, "spmv", _pick_entry(matrix, fmt, "spmv", backend, ctx), ctx)
     ck_m = R.build(matrix, fmt, "spmm", _pick_entry(matrix, fmt, "spmm", backend, ctx), ctx)
     am = am if am is not None else PM.access_model_for(matrix, chip)

@@ -14,8 +14,9 @@ Every entry carries a cost hook: predicted seconds for one call through
 ``core.perfmodel.predict_exec``, with the entry's own stream-byte regime
 (flat vs padded SELL) and formulation efficiency.  ``backend="auto"``
 (:func:`select_backend`) probes every eligible entry, takes the ``cuda``
-kernel whenever its probe accepts, ranks the other survivors by cost and
-memoizes the pick on the container.
+kernel whenever its probe accepts, ranks the other survivors by cost (or,
+with a tuning DB in the context, by their measured times) and memoizes the
+pick on the container.
 """
 from __future__ import annotations
 
@@ -38,12 +39,14 @@ _BACKEND_DERATE = {"torch": 1.0, "cuda": 1.0, "loop_reference": 1e-3}
 class KernelContext:
     """What a build, probe or cost hook needs beyond the operand: the device
     the plan places it on (default: the card, a ``RuntimeError`` without
-    one), the chip the cost model prices and its access model (``None``:
-    derived from the stored value dtype)."""
+    one), the chip the cost model prices, its access model (``None``:
+    derived from the stored value dtype) and the tuning DB whose measured
+    times rank the entries (``None``: the cost hooks rank them)."""
 
     device: torch.device = field(default_factory=lambda: default_device(None))
     chip: ChipSpec = H100
     am: object = None
+    tuning: object = None             # core.tunedb.TuneDB
 
     def __post_init__(self):
         object.__setattr__(self, "device", default_device(self.device))
@@ -98,7 +101,7 @@ def _ensure_populated() -> None:
     if _POPULATED:
         return
     _POPULATED = True
-    from . import bsr, csr, dia, ell, hybrid, jds, matrix_free, sell  # noqa: F401
+    from . import bsr, coo, csr, dia, ell, hybrid, jds, matrix_free, sell  # noqa: F401
 
 
 def probe_cuda(matrix, ctx: KernelContext) -> Capability:
@@ -201,11 +204,14 @@ def select_backend(matrix, format: str, op: str,
     """``backend="auto"``: probe every eligible entry and memoize the pick
     on the container.  A ``cuda`` entry whose probe accepts is always the
     pick -- a kernel that can run never gives way to the plain version,
-    whatever chip is priced; the cost hooks rank the rest.  Returns
-    ``(backend, {backend: predicted seconds})``;
+    whatever chip is priced and whatever a tuning DB recorded.  Among the
+    rest, a fresh measured record of ``ctx.tuning`` decides (the warm path;
+    its measured seconds stand in the cost slot), else the cost hooks rank
+    them.  Returns ``(backend, {backend: seconds})``;
     :class:`BackendUnavailable` when nothing survives."""
     ctx = ctx or KernelContext()
-    memo_key = (format, op, str(ctx.device), ctx.chip, ctx.am)
+    memo_key = (format, op, str(ctx.device), ctx.chip, ctx.am,
+                getattr(ctx.tuning, "token", None))
     memo = getattr(matrix, "_backend_choices", None)
     if memo is None:
         memo = {}
@@ -214,9 +220,18 @@ def select_backend(matrix, format: str, op: str,
         return memo[memo_key]
     costs = {e.backend: e.cost(matrix, ctx) for e in entries(format, op)
              if e.auto and e.probe(matrix, ctx).ok}
-    if not costs:
+    tuned = None
+    if "cuda" not in costs and ctx.tuning is not None:
+        tuned = ctx.tuning.lookup_backend(matrix, format, op, chip=ctx.chip,
+                                          device=ctx.device)
+    if "cuda" in costs:
+        choice = ("cuda", costs)
+    elif tuned is not None:
+        choice = (tuned["backend"], {tuned["backend"]: tuned["t_measured_s"]})
+    elif costs:
+        choice = (min(costs, key=costs.get), costs)
+    else:
         raise BackendUnavailable(f"no registered backend can run ({format}, {op}) "
                                  f"on {ctx.device}")
-    choice = ("cuda" if "cuda" in costs else min(costs, key=costs.get), costs)
     memo[memo_key] = choice
     return choice

@@ -721,3 +721,74 @@ def test_cuda_mf_spmv_refuses_before_any_launch(cuda_device):
     with pytest.raises(ValueError, match="columns"):
         MF.mf_spmv_arrays(data, launch, x[1:])
     assert CB.launch_counts()["mf_spmv"] == before
+
+
+# --- slice 8: COO, validation, faults and the tuning DB on the card --------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vd", ("f64", "f32", "int8"))
+def test_coo_torch_entry_on_the_card(cuda_device, vd):
+    """The coo ``torch`` entry runs on the card (``index_add_``: atomics, so
+    within tolerance of the host's product, not bitwise)."""
+    m = PF.with_value_dtype(port_matrix("surrogate3000").to_coo(), vd)
+    plan = SpMVPlan.compile(m, PlanConfig(device=cuda_device))
+    assert plan.report.format == "coo" and plan.report.kernel == "torch"
+    host = SpMVPlan.compile(m, PlanConfig(device="cpu"))
+    dt = torch.float64 if vd == "f64" else torch.float32
+    X = torch.from_numpy(np.random.default_rng(4).standard_normal((m.shape[1], 4))).to(dt)
+    y = plan(X[:, 0].to(cuda_device))
+    Y = plan.spmm(X.to(cuda_device))
+    assert y.device == cuda_device and Y.device == cuda_device
+    tol = 1e-12 if vd == "f64" else 1e-5
+    assert _rel(y.cpu(), host(X[:, 0])) <= tol and _rel(Y.cpu(), host.spmm(X)) <= tol
+
+
+@pytest.mark.cuda
+def test_vector_checks_stay_on_the_card(cuda_device):
+    from repro_torch.core.validate import (
+        VectorValidationError, check_finite_columns, validate_vector)
+    x = torch.arange(1.0, 6.0, device=cuda_device)
+    assert validate_vector(x, 5) is x
+    bad = x.clone()
+    bad[2] = float("nan")
+    with pytest.raises(VectorValidationError, match="non-finite"):
+        validate_vector(bad, 5)
+    fixed = validate_vector(bad, 5, policy="repair")
+    assert fixed.device == cuda_device and float(fixed[2]) == 0.0
+    Y = torch.ones((7, 3), device=cuda_device)
+    Y[4, 1] = float("inf")
+    ok = check_finite_columns(Y)
+    assert ok.device == cuda_device and ok.tolist() == [True, False, True]
+
+
+@pytest.mark.cuda
+def test_faults_poison_a_card_tensor(cuda_device):
+    from repro_torch.testing import faults
+    y = torch.ones((6, 4), device=cuda_device)
+    got = faults.poison(y, faults.FaultSpec("plan.spmm", nonfinite=True, column=3))
+    assert got.device == cuda_device and bool(torch.isnan(got[0, 3]))
+    assert int(torch.isnan(got).sum()) == 1 and not bool(torch.isnan(y).any())
+    plan = SpMVPlan.compile(port_matrix("laplace48"), PlanConfig(device=cuda_device))
+    x = torch.ones(plan.report.shape[1], dtype=torch.float64, device=cuda_device)
+    with faults.inject("plan.spmv", nonfinite=True):
+        poisoned = plan(x)
+    assert poisoned.device == cuda_device and bool(torch.isnan(poisoned[0]))
+    assert torch.isfinite(plan(x)).all()
+
+
+@pytest.mark.cuda
+def test_tunedb_warms_a_pick_on_the_card_only_for_its_platform(cuda_device):
+    from repro_torch.core import perfmodel as PM
+    from repro_torch.core import tunedb as TDB
+    from repro_torch.utils.hw import H100
+    m = port_matrix("powerlaw")
+    cold = PM.select_format(m, device=cuda_device)
+    other = next(f for f in ("jds", "ell", "csr") if f != cold.format)
+    for platform, warm in (("cpu", False), ("cuda", True)):
+        db = TDB.TuneDB()
+        db.record(m, chip=H100, platform=platform,
+                  candidates=[TDB.Candidate(other, "torch", 1e-7)])
+        fresh = PF.CSR(m.row_ptr.clone(), m.col_idx.clone(), m.val.clone(), m.shape)
+        plan = SpMVPlan.compile(fresh, PlanConfig(format="auto", tuning=db,
+                                                  device=cuda_device))
+        assert plan.report.format == (other if warm else cold.format), platform

@@ -216,11 +216,16 @@ def test_h100_with_bandwidth_is_marked_measured():
     assert (c.name, c.peak_flops_fp32) == (H100.name, H100.peak_flops_fp32)
 
 
-def test_select_format_refuses_tuning_and_passes_concrete_containers():
+def test_select_format_refuses_tuning_and_passes_concrete_containers(tmp_path):
     _, port = containers("sell")
     assert PM.select_format(port).format == "sell"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        PM.select_format(to_port(ref_matrix("exact3")), tuning="db.json")
+    # the tuning DB is ported (core/tunedb.py): a DB file that does not exist
+    # is an empty DB, so the pick is the cold path's, from the model
+    m = to_port(ref_matrix("exact3"))
+    cold = PM.select_format(m, device="cpu")
+    warm = PM.select_format(m, tuning=tmp_path / "db.json", device="cpu")
+    assert (warm.format, warm.predicted_time_s, warm.source) == \
+        (cold.format, cold.predicted_time_s, "model")
 
 
 @pytest.mark.parametrize("K,acc_bytes,ct,tpr", [
