@@ -82,7 +82,25 @@ repository configures:
    surrogate into ``build/corpus/``, ``load_matrix(..., validate="strict")``
    back (CSR arrays bitwise those in memory), a ``format="auto"`` plan and
    64 Lanczos steps whose E0 equals the in-memory plan's bit for bit, with
-   the host seconds of the write, the read, the validation and the compile.
+   the host seconds of the write, the read, the validation and the compile;
+12. serving: (a) phase 8's surrogate SELL registered in a
+   ``serve.BatchingSpMVServer`` priced on ``card_chip()``, width from
+   ``select_batch_width``; 8 x width f64 requests and a padded partial
+   batch through kernel 5 (one launch a flush, nothing else), every future
+   against ``plan(x)`` (kernel 1), two servings bit-equal, the served SpMV/s
+   over a window of ``SERVE_WINDOW_S`` seconds a side, in turns with the
+   guardrails-off server (all the work over all the time, and the spread of
+   the rounds), beside phase 8's kernel-only rate, and one flush's device
+   steps each timed alone by CUDA events (operand, kernel 5, verdict) beside
+   the flush's host and wall time; (b) a width-1 server (kernel 1, bitwise
+   ``plan(x)``), and the exact L = 6 operator beside the surrogate in one
+   server, both flushed by ``pump()`` past the deadline (kernel 4 once a
+   real column: a column-by-column SpMM is not padded), and the exact
+   operator's flush timed at full and at partial width; (c) on a small
+   corpus spec: transient retry, poison isolation, a persistent ``cuda``
+   failure ending in a ``KernelFault`` on each request (a card kernel has
+   no plain rung to fall to) and clean bits after, queue-full shedding, a
+   request timeout, and the bits back after ``faults.reset()``.
 
 Phase 7 ends with the measured warm path: every timed candidate of its
 seven matrices recorded into a ``core.tunedb.TuneDB`` (keyed by signature,
@@ -135,6 +153,11 @@ def nvidia_smi() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+#: seconds of serving a side behind phase 12's served rates: long enough
+#: for a stall or a slow flush to show in the rate
+SERVE_WINDOW_S = 1.0
 
 
 def time_ms(torch, fn, reps: int = 25) -> float:
@@ -307,6 +330,7 @@ def main(argv=None) -> int:
             gemm_plan, grouped_gemm_arrays, grouped_gemm_plain, plan_groups)
         from repro_torch.models.sparse import (
             SparseLinear, advise_weight_format, magnitude_prune)
+        from repro_torch import serve as SERVE
         from repro_torch.testing import faults
         from repro_torch.utils.hw import H100
     except ImportError as e:
@@ -1502,17 +1526,321 @@ def main(argv=None) -> int:
         f"CSR bitwise; {res_l.n_spmv} Lanczos steps, E0 {e_l:.12f} = in-memory plan's")
     del loaded, plan_l, plan_m
 
+    # --- 12. serving: BatchingSpMVServer at the paper's scale --------------------
+    t12 = time.perf_counter()
+    f64 = torch.float64
+
+    class FakeClock:
+        """A clock the script steps by hand (deadlines without sleeping)."""
+
+        def __init__(self):
+            self.t = 0.0
+
+        def advance(self, dt):
+            self.t += dt
+
+        def __call__(self):
+            return self.t
+
+    def serve_round(srv_, name, xs_):
+        """Submit ``xs_`` in order and read every result: (results, wall s)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ys_ = [f.result() for f in srv_.submit_many(name, xs_)]
+        torch.cuda.synchronize()
+        return ys_, time.perf_counter() - t0
+
+    def worst_rel(got, want):
+        return max(rel_err(torch, g, w)[1] for g, w in zip(got, want))
+
+    # 12a. the surrogate through kernel 5: phase 8's SELL container, priced on
+    # the measured card, the width from select_batch_width
+    card = MB.card_chip(dev, n=args.triad_n)   # memoized: phase 5's calibration
+    srv = SERVE.BatchingSpMVServer(chip=card, max_batch=None, deadline_s=10.0)
+    rep = srv.register("surrogate", ss)
+    check(rep.kernel == rep.spmm_kernel == "cuda" and srv.plan("surrogate") is plan_s,
+          f"serving: the surrogate's plan runs {rep.kernel} / {rep.spmm_kernel}, or is not "
+          "phase 8's plan")
+    width = srv.stats()["surrogate"]["batch_width"]
+    check(width == PM.select_batch_width(ss, chip=card, backend="cuda").width and width > 1,
+          f"serving: width {width} is not select_batch_width's")
+    R = 8 * width
+    gen_s = torch.Generator(device=dev).manual_seed(12)
+    xs_all = list(torch.randn((R + width - 1, args.n), generator=gen_s, device=dev, dtype=f64))
+    xs, xs_part = xs_all[:R], xs_all[R:]
+    CB.reset_launch_counts()
+    ys, _ = serve_round(srv, "surrogate", xs)
+    counts = CB.launch_counts()
+    check(counts["sell_spmm"] == R // width and sum(counts.values()) == R // width,
+          f"serving: {R} requests at width {width} launched {counts}, not sell_spmm once "
+          "a flush")
+    futs_p = srv.submit_many("surrogate", xs_part)
+    check(not any(f.done() for f in futs_p) and srv.flush("surrogate") == width - 1,
+          "serving: the partial batch flushed early or answered the wrong count")
+    ys_p = [f.result() for f in futs_p]
+    counts = CB.launch_counts()
+    check(counts["sell_spmm"] == R // width + 1 and sum(counts.values()) == R // width + 1,
+          f"serving: the padded partial flush launched {counts}")
+    launches_12a = counts["sell_spmm"]
+    err_12a = worst_rel(ys + ys_p, [plan_s(x) for x in xs + xs_part])
+    check(err_12a <= TOL["float64"], f"serving: a future differs from plan(x) (kernel 1) "
+                                     f"by {err_12a:.3e}")
+    ys2, _ = serve_round(srv, "surrogate", xs)
+    check(all(torch.equal(a, b) for a, b in zip(ys, ys2)),
+          "serving: two servings of the same requests differ in their bits")
+    del ys2
+    # the served rate over a window of at least SERVE_WINDOW_S a side: rounds
+    # of the R requests, the default server and the guardrails-off one
+    # (validate="off", resilience disabled: the reference's overhead
+    # comparison) in turns, every round's bits checked outside its time
+    srv_off = SERVE.BatchingSpMVServer(chip=card, max_batch=width, deadline_s=10.0,
+                                       validate="off",
+                                       resilience=SERVE.ResiliencePolicy(enabled=False))
+    srv_off.register("surrogate", ss)
+    walls = {"on": [], "off": []}
+    while min(sum(walls["on"]), sum(walls["off"])) < SERVE_WINDOW_S:
+        order = ("off", "on") if len(walls["on"]) % 2 else ("on", "off")
+        for side in order:
+            ys_t, w = serve_round(srv if side == "on" else srv_off, "surrogate", xs)
+            walls[side].append(w)
+            check(all(torch.equal(a, b) for a, b in zip(ys, ys_t)),
+                  f"serving ({side}): round {len(walls[side])} differs in its bits")
+    del ys_t
+    rounds = len(walls["on"])
+    served = {k: {"rounds": len(v), "requests": R * len(v), "seconds": sum(v),
+                  "qps": R * len(v) / sum(v), "round_qps_min": R / max(v),
+                  "round_qps_median": R / float(np.median(v)), "round_qps_max": R / min(v)}
+              for k, v in walls.items()}
+    qps = {k: v["qps"] for k, v in served.items()}
+
+    # one flush's device steps, each timed alone on an operand of the flush's
+    # shape (CUDA events): the transposing copy out of the staging block,
+    # kernel 5 and the verdict; then one flush through the server on the
+    # host clock, the rest being what the steps do not explain
+    block = torch.stack(xs[:width])
+    X_f, _ = SERVE.batching.coalesce(block, width, True)
+    Y_f = plan_s.spmm(X_f)
+    split = {"coalesce": time_ms(torch, lambda: SERVE.batching.coalesce(block, width, True)),
+             "kernel5": time_ms(torch, lambda: plan_s.spmm(X_f)),
+             "verdict": time_ms(torch, lambda: V.check_finite_columns(Y_f))}
+    del block, X_f, Y_f
+    host_ms, wall_ms = [], []
+    for _ in range(5):
+        srv.submit_many("surrogate", xs[:width - 1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = srv.submit("surrogate", xs[width - 1])   # fills the batch: one flush
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        last.result()
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+    split.update(flush_host_ms=float(np.median(host_ms)), flush_wall_ms=float(np.median(wall_ms)))
+    split["rest_ms"] = split["flush_wall_ms"] - (split["coalesce"] + split["kernel5"]
+                                                 + split["verdict"])
+    st = srv.stats()["surrogate"]
+    # the first round, the repeat, the timed ones, the padded partial, the five
+    # timed flushes
+    n_batches = (2 + rounds) * (R // width) + 1 + 5
+    check(st["degraded"] == st["failed"] == st["shed"] == st["retried"] == 0
+          and st["batches"] == n_batches and st["kernel"] == "cuda"
+          and st["padding_ratio"] == 1 / (n_batches * width),
+          f"serving: stats {st} (expected {n_batches} batches, one pad column, no fault)")
+    kernel_qps = batch[width]["measured_qps"] if width in batch else None
+    out["serving"] = {
+        "width": width, "requests": R, "launches_sell_spmm": launches_12a,
+        "max_rel_err_vs_plan": err_12a, "served_qps": qps["on"],
+        "served_qps_guardrails_off": qps["off"], "served": served, "walls_s": walls,
+        "kernel_only_qps_phase8": kernel_qps, "flush_split_ms": split,
+        "stats": {k: v for k, v in st.items() if k != "ladder"}, "ladder": list(st["ladder"])}
+    log(f"[serve] surrogate SELL C=8 sigma={s_sig} through kernel 5: select_batch_width "
+        f"{width} on card_chip(); {R} f64 requests -> {launches_12a} sell_spmm launches "
+        f"(one a flush, one padded partial); futures vs plan(x) rel err {err_12a:.1e}; "
+        f"served {qps['on']:.0f} SpMV/s over {served['on']['seconds']:.3f} s, {rounds} rounds "
+        f"(round min/median/max {served['on']['round_qps_min']:.0f} / "
+        f"{served['on']['round_qps_median']:.0f} / {served['on']['round_qps_max']:.0f}); "
+        f"guardrails off {qps['off']:.0f} over {served['off']['seconds']:.3f} s "
+        f"({served['off']['round_qps_min']:.0f} / {served['off']['round_qps_median']:.0f} / "
+        f"{served['off']['round_qps_max']:.0f}; overhead {qps['off'] / qps['on']:.4f}x); "
+        f"kernel 5 alone at K={width} {kernel_qps or float('nan'):.0f} SpMV/s (phase 8); one "
+        f"flush: coalesce {split['coalesce']:.4f} ms, kernel 5 {split['kernel5']:.4f}, verdict "
+        f"{split['verdict']:.4f} (device, each alone), host {split['flush_host_ms']:.4f}, wall "
+        f"{split['flush_wall_ms']:.4f}, rest {split['rest_ms']:.4f} ms; ladder "
+        f"{list(st['ladder'])}")
+    del ys, ys_p, xs_all, xs, xs_part
+
+    # 12b. width 1 on the surrogate (kernel 1), then the exact L = 6 operator
+    # (kernel 4) beside the surrogate in one server, flushed by pump()
+    solo = SERVE.BatchingSpMVServer(chip=card, max_batch=1)
+    solo.register("surrogate", ss)
+    xs1 = list(torch.randn((64, args.n), generator=gen_s, device=dev, dtype=f64))
+    CB.reset_launch_counts()
+    ys1, wall1 = serve_round(solo, "surrogate", xs1)
+    counts = CB.launch_counts()
+    check(counts["sell_spmv"] == 64 and sum(counts.values()) == 64,
+          f"serving width 1: 64 requests launched {counts}, not sell_spmv once each")
+    launches_12b_v = counts["sell_spmv"]
+    check(all(torch.equal(y, plan_s(x)) for x, y in zip(xs1, ys1)),
+          "serving width 1: a future is not bitwise plan(x)")
+    t_k1 = time_ms(torch, lambda: plan_s(xs1[0]))
+    st1 = solo.stats()["surrogate"]
+    check(st1["fast_path_calls"] == 64 and st1["batches"] == 0, f"serving width 1: {st1}")
+    del ys1, xs1
+    clock = FakeClock()
+    duo = SERVE.BatchingSpMVServer(chip=card, clock=clock)
+    duo.register("surrogate", ss)
+    rep_x = duo.register("exact", ex6)
+    check(rep_x.kernel == rep_x.spmm_kernel == "cuda", f"serving: {ex6_name} runs {rep_x}")
+    w_sur, w_ex = (duo.stats()[k]["batch_width"] for k in ("surrogate", "exact"))
+    xs_s = list(torch.randn((min(3, w_sur - 1), args.n), generator=gen_s, device=dev, dtype=f64))
+    xs_x = list(torch.randn((min(3, w_ex - 1), ex6.shape[0]), generator=gen_s, device=dev,
+                            dtype=f64))
+    CB.reset_launch_counts()
+    fs, fx = duo.submit_many("surrogate", xs_s), duo.submit_many("exact", xs_x)
+    check(duo.pump() == 0 and not any(f.done() for f in fs + fx),
+          "serving: pump() flushed before the deadline")
+    clock.advance(2 * duo.deadline_s)
+    check(duo.pump() == len(xs_s) + len(xs_x), "serving: pump() missed a due queue")
+    ys_s, ys_x = [f.result() for f in fs], [f.result() for f in fx]
+    counts = CB.launch_counts()
+    # kernel 4 runs once a column, so the exact operator's partial flush is
+    # not padded: one launch a real request
+    check(counts["sell_spmm"] == 1 and counts["mf_spmv"] == len(xs_x)
+          and sum(counts.values()) == 1 + len(xs_x),
+          f"serving: one pump of both queues launched {counts} (want sell_spmm 1, mf_spmv "
+          f"{len(xs_x)}: kernel 4 once a real column)")
+    launches_12b_mf = counts["mf_spmv"]
+    plan_x6 = duo.plan("exact")
+    check(plan_x6.spmm_by_columns and not plan_s.spmm_by_columns,
+          "serving: the SpMM entries' column-by-column marks are wrong")
+    check(all(torch.equal(y, plan_x6(x)) for x, y in zip(xs_x, ys_x)),
+          f"serving: an {ex6_name} future is not bitwise plan(x)")
+    err_12b = worst_rel(ys_s, [plan_s(x) for x in xs_s])
+    check(err_12b <= TOL["float64"], f"serving: surrogate future vs plan(x) {err_12b:.3e}")
+    for name, pad in (("surrogate", 1 - len(xs_s) / w_sur), ("exact", 0.0)):
+        st_ = duo.stats()[name]
+        check(st_["degraded"] == st_["failed"] == st_["shed"] == 0 and st_["batches"] == 1
+              and abs(st_["padding_ratio"] - pad) < 1e-12,
+              f"serving: {name} stats {st_} (padding ratio {pad} expected)")
+    # the exact operator's flush at full width and at the partial width, on
+    # the host clock: K launches of kernel 4 against K times its own time
+    xs_w = list(torch.randn((w_ex, ex6.shape[0]), generator=gen_s, device=dev, dtype=f64))
+    ex_flush = {}
+    for k_ in (w_ex, len(xs_x)):
+        walls_ = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fl = duo.submit_many("exact", xs_w[:k_])
+            duo.flush("exact")
+            fl[-1].result()
+            torch.cuda.synchronize()
+            walls_.append((time.perf_counter() - t0) * 1e3)
+        ex_flush[k_] = {"ms": float(np.median(walls_)),
+                        "kernel4_times_k_ms": k_ * mf_timed["exact"]["ms"]}
+    del xs_w, fl
+    out["serving"].update(
+        width1={"requests": 64, "ms_per_request": wall1 / 64 * 1e3, "kernel1_plan_ms": t_k1,
+                "launches_sell_spmv": launches_12b_v},
+        two_operators={"widths": {"surrogate": w_sur, "exact": w_ex},
+                       "launches": {"sell_spmm": counts["sell_spmm"],
+                                    "mf_spmv": launches_12b_mf},
+                       "surrogate_rel_err": err_12b, "exact_flush": ex_flush})
+    log(f"[serve] width 1: 64 requests, {wall1 / 64 * 1e3:.4f} ms a request against "
+        f"plan(x) {t_k1:.4f} ms (kernel 1), {launches_12b_v} sell_spmv launches, bitwise "
+        f"plan(x); surrogate + {ex6_name} in one server, widths {w_sur} / {w_ex}: pump() "
+        f"past the deadline flushed both, sell_spmm {counts['sell_spmm']}, mf_spmv "
+        f"{launches_12b_mf} (kernel 4 once a real column, no pad), exact futures bitwise "
+        f"plan(x); exact flush " + ", ".join(
+            f"K={k_}: {v['ms']:.4f} ms (K x kernel 4 {v['kernel4_times_k_ms']:.4f})"
+            for k_, v in ex_flush.items()))
+    del ys_s, ys_x, xs_s, xs_x, fs, fx
+
+    # 12c. resilience on the card, on a small corpus spec (SELL kernels 1, 5):
+    # the loop_reference rung is a host loop, never driven at full size
+    cm = CORPUS.build("holstein_surrogate")
+    n_c = cm.shape[1]
+    clock_c = FakeClock()
+
+    def small(**kw):
+        s_ = SERVE.BatchingSpMVServer(chip=card, max_batch=4, deadline_s=60.0,
+                                      clock=clock_c, **kw)
+        s_.register("c", cm, config=PlanConfig(format="sell"))
+        return s_
+
+    xs_c = list(torch.randn((4, n_c), generator=gen_s, device=dev, dtype=f64))
+    s1 = small()
+    check(s1.plan("c").report.spmm_kernel == "cuda", "resilience: the small plan is not cuda")
+    clean = [f.result() for f in s1.submit_many("c", xs_c)]
+    with faults.inject("serve.flush", error=RuntimeError("transient"), times=1) as sp:
+        got = [f.result() for f in s1.submit_many("c", xs_c)]
+    check(sp.fired == 1 and s1.stats()["c"]["retried"] == 1
+          and all(torch.equal(a, b) for a, b in zip(clean, got)),
+          "resilience: a transient serve.flush error was not retried bit for bit")
+    with faults.inject("plan.spmm", nonfinite=True, times=None, column=2):
+        futs = s1.submit_many("c", xs_c)
+    errs = [f.error() for f in futs]
+    check(isinstance(errs[2], SERVE.KernelFault) and errs[2].nonfinite
+          and all(errs[i] is None and torch.equal(futs[i].result(), clean[i]) for i in (0, 1, 3)),
+          f"resilience: poison isolation gave {errs}")
+    # a cuda plan has no plain rung below it: a persistent kernel failure
+    # is a KernelFault on every request, never an answer from a plain version
+    s2 = small(resilience=SERVE.ResiliencePolicy(max_retries=0, breaker_threshold=1))
+    check(s2.stats()["c"]["ladder"] == (), f"resilience: ladder {s2.stats()['c']['ladder']}")
+    with faults.inject("plan.spmm", error=RuntimeError("cuda broken"), times=None,
+                       when=lambda ctx: ctx.get("kernel") == "cuda"):
+        errs = [f.error() for f in s2.submit_many("c", xs_c)]
+    st2 = s2.stats()["c"]
+    check(all(isinstance(e, SERVE.KernelFault) and e.kernel == "cuda" for e in errs)
+          and st2["degraded"] == 0 and st2["failed"] == len(xs_c)
+          and s2.plan("c").report.kernel == "cuda",
+          f"resilience: a persistent cuda failure gave {errs}, stats {st2}")
+    check(all(torch.equal(f.result(), c) for f, c in zip(s2.submit_many("c", xs_c), clean)),
+          "resilience: the operator did not serve the clean bits once the fault was gone")
+    try:
+        with faults.inject("serve.queue_full", error=SERVE.BackpressureError("injected")):
+            s1.submit("c", xs_c[0])
+        shed = False
+    except SERVE.BackpressureError:
+        shed = True
+    check(shed and s1.stats()["c"]["shed"] == 1, "resilience: queue_full did not shed")
+    f_late = s1.submit("c", xs_c[0], timeout_s=0.1)
+    clock_c.advance(1.0)
+    s1.flush("c")
+    check(isinstance(f_late.error(), SERVE.DeadlineExceeded),
+          "resilience: a request past its timeout was not shed")
+    faults.reset()
+    s3 = small()
+    check(all(torch.equal(f.result(), c) for f, c in zip(s3.submit_many("c", xs_c), clean)),
+          "resilience: after faults.reset() a fresh registration changed the bits")
+    out["serving"].update(resilience={"spec": "holstein_surrogate", "rows": n_c,
+                                      "checks": 6},
+                          host_s=time.perf_counter() - t12)
+    for name, n_ in (("sell_spmm", launches_12a), ("sell_spmv", launches_12b_v),
+                     ("mf_spmv", launches_12b_mf)):
+        record(name, launches_serving=n_)
+    log(f"[serve] resilience on the card ({cm.shape[0]} rows, sell): transient retry "
+        f"bitwise, column 2 poisoned -> KernelFault alone, persistent cuda failure -> "
+        f"KernelFault on each request (no plain rung), then clean bits, queue_full shed, "
+        f"timeout -> DeadlineExceeded, bits back after reset; phase 12 took "
+        f"{out['serving']['host_s']:.1f} s")
+    del srv, srv_off, solo, duo, s1, s2, s3
+
     # --- report -----------------------------------------------------------------
     names = ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv", "sell_spmm", "stream_triad",
              "gather_scp", "bell_spmm", "grouped_gemm", "grouped_gemm_wgmma")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: rows[n].get(k) for k in keys} for n in names]
+    # launches_serving: phase 12's count (0 for a kernel off the serving path)
+    kernels = [{**{k: rows[n].get(k) for k in keys},
+                "launches_serving": rows[n].get("launches_serving", 0)} for n in names]
     for kr in kernels:
         check(all(kr[k] is not None for k in keys if k != "library_ms")
               and (kr["library_ms"] is not None or kr["name"] == "gather_scp"),
               f"incomplete kernel row {kr}")
         check(kr["launches"] > 0, f"{kr['name']} was never launched on its path")
+        check(kr["launches_serving"] > 0 or kr["name"] not in ("sell_spmm", "sell_spmv",
+                                                               "mf_spmv"),
+              f"{kr['name']} was never launched on the serving path")
     out["kernels"] = [rows[n] for n in names]
     for kr in out["kernels"]:
         kr["bound_ms_at_measured_bw"] = kr["bound_ms"] * H100.hbm_bytes_per_s / \

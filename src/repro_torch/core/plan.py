@@ -78,6 +78,13 @@ class SpMVPlan:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self.spmv(x)
 
+    @property
+    def spmm_by_columns(self) -> bool:
+        """True when the SpMM entry runs the SpMV once a column
+        (``kernels.cache.spmm_by_columns``), so the matrix is streamed once
+        per column rather than once per call."""
+        return getattr(self.apply_multi, "by_columns", False)
+
     def _operand(self, x, what: str) -> torch.Tensor:
         if isinstance(x, np.ndarray):
             return torch.as_tensor(x, device=self.device)

@@ -34,10 +34,18 @@ def cached(m, attr: str, stat: str, build):
 
 
 def spmm_by_columns(spmv_fn):
-    """Lift an SpMV closure to the SpMM contract column by column."""
+    """Lift an SpMV closure to the SpMM contract column by column; the
+    result is marked ``by_columns`` (``SpMVPlan.spmm_by_columns``).
+
+    X is transposed once, so each column is a contiguous row, and the
+    outputs are stacked as rows and transposed back once: a copy of one
+    strided column (or a stack of outputs as columns) reads or writes a
+    sector of every row of the batch for each column.
+    """
 
     def f(X):
-        return torch.stack([spmv_fn(X[:, j].contiguous())
-                            for j in range(X.shape[1])], dim=1)
+        Xt = X.t().contiguous()
+        return torch.stack([spmv_fn(x) for x in Xt], dim=0).t().contiguous()
 
+    f.by_columns = True
     return f

@@ -1,0 +1,265 @@
+"""Micro-batched SpMV serving: ``BatchingSpMVServer``.
+
+Port of the SpMV half of ``repro.serve.engine``.  Concurrent ``y = A @ x``
+requests against a registered matrix are coalesced into a single
+``plan.spmm(X)``, so the matrix is streamed once per batch instead of once
+per request (``serve.batching`` holds the queue machinery,
+``perfmodel.select_batch_width`` the width policy).  ``SparseOperatorServer``
+remains as the direct-call compatibility name.
+
+Not here yet: ``register_distributed`` arrives with the distributed SpMV
+plans (``core/distributed*.py``, ``kernels/slab.py``), and the token
+``Engine`` / ``GenerationConfig`` with the LM stack (``models/registry.py``,
+``serve/kv_cache.py``).
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ..core import perfmodel as PM
+from ..core.plan import _LABEL_STREAM, SpMVPlan
+from ..core.planconfig import coerce_config
+from ..core.validate import POLICIES
+from ..utils.hw import H100, default_device
+from .batching import BatchPolicy, OperatorQueue, SpMVFuture
+from .resilience import ResiliencePolicy, degradation_ladder
+
+
+class BatchingSpMVServer:
+    """Micro-batching SpMV serving: coalesce concurrent requests into SpMM.
+
+    A single SpMV re-streams the whole matrix per call, so single-request
+    throughput saturates at BW / balance.  Batching k concurrent requests
+    into one ``plan.spmm(X)`` streams the matrix once for all k
+    (``perfmodel.spmm_balance_of``).
+
+    Each registered operator gets a compiled ``SpMVPlan`` on the server's
+    device plus an ``OperatorQueue`` whose flush width comes from the SpMM
+    roofline of the plan's SpMM kernel (``perfmodel.select_batch_width``)
+    unless overridden.  Requests enter through ``submit`` / ``submit_many``
+    and resolve as ``SpMVFuture``s when the batch flushes: width reached,
+    deadline elapsed (checked at submission and by ``pump()``), or a
+    consumer forcing ``result()``.  Partial batches are zero-padded to the
+    policy width.  ``max_pending`` caps each queue; beyond it ``submit``
+    sheds load with ``BackpressureError``.
+
+    The batcher is cooperative and single-threaded; ``clock`` is injectable
+    so deadline behaviour is testable without sleeping.
+    """
+
+    def __init__(self, *, backend: str = "auto", chip=None,
+                 am: PM.AccessModel | None = None,
+                 max_batch: int | None = None, deadline_s: float = 1e-3,
+                 max_pending: int = 256, pad_partial: bool = True,
+                 clock=time.monotonic, validate: str = "strict",
+                 resilience=None, device=None):
+        """Args:
+            backend: plan backend ("auto" | "cuda" | "torch" |
+                "loop_reference").
+            chip: roofline parameters; defaults to the H100 data sheet
+                (``core.microbench.card_chip()`` is the card as measured).
+            am: access model (byte widths) for the batching policy.
+            max_batch: server-wide flush-width override; None lets
+                ``perfmodel.select_batch_width`` decide per operator.
+            deadline_s: default latency bound for partial batches.
+            max_pending: default per-operator queue cap (backpressure).
+            pad_partial: zero-pad partial batches to the policy width.
+            clock: monotonic time source (injectable for tests).
+            validate: request-vector policy ("strict" | "repair" | "off")
+                applied at ``submit`` and to registered matrices
+                (``core.validate``).
+            resilience: a ``serve.resilience.ResiliencePolicy`` for the
+                flush path; None uses the defaults, and
+                ``ResiliencePolicy(enabled=False)`` the legacy
+                propagate-and-strand behaviour.
+            device: where every plan runs; None means the card and raises
+                when there is none (``utils.hw.default_device``), "cpu"
+                runs the plain PyTorch versions on the host.
+        """
+        if validate not in POLICIES:
+            raise ValueError(f"validate={validate!r}; expected one of {POLICIES}")
+        self.device = default_device(device)
+        self.backend = backend
+        self.chip = chip or H100
+        self.am = am
+        self.max_batch = max_batch
+        self.deadline_s = deadline_s
+        self.max_pending = max_pending
+        self.pad_partial = pad_partial
+        self._clock = clock
+        self.validate = validate
+        self.resilience = resilience if resilience is not None else (
+            ResiliencePolicy())
+        self._queues: dict[str, OperatorQueue] = {}
+
+    # -- registration -------------------------------------------------------
+
+    def _policy(self, plan: SpMVPlan, max_batch, deadline_s,
+                max_pending) -> BatchPolicy:
+        # a flush runs the plan's SpMM: its kernel's stream-byte regime
+        # prices the width
+        width = max_batch if max_batch is not None else self.max_batch
+        if width is None:
+            width = PM.select_batch_width(
+                plan.matrix, am=self.am, chip=self.chip,
+                backend=_LABEL_STREAM[plan.report.spmm_kernel]).width
+        return BatchPolicy(
+            width=int(width),
+            deadline_s=self.deadline_s if deadline_s is None else deadline_s,
+            pad_to_width=self.pad_partial,
+            max_pending=self.max_pending if max_pending is None else max_pending,
+        )
+
+    def _server_config(self, config, plan_kw, *, api: str):
+        """Fold kwargs into a ``PlanConfig`` and apply the server's floor:
+        the server owns the chip and the device, ``backend="auto"`` defers
+        to the server-wide backend, and ``validate=None`` inherits the
+        server's validation policy."""
+        cfg = coerce_config(config, plan_kw, api=api, stacklevel=4)
+        return cfg.replace(
+            chip=self.chip, device=self.device,
+            backend=self.backend if cfg.backend in (None, "auto") else cfg.backend,
+            validate=self.validate if cfg.validate is None else cfg.validate)
+
+    def register(self, name: str, matrix, *, max_batch: int | None = None,
+                 deadline_s: float | None = None,
+                 max_pending: int | None = None,
+                 config=None, **plan_kw):
+        """Compile ``matrix`` into a plan + batching queue; returns the report.
+
+        Compilation is idempotent (plans are memoized on the container);
+        re-registering a name replaces its queue and resets its stats.
+
+        Args:
+            name: operator key used by ``submit`` / ``spmv`` / ``stats``.
+            matrix: any ``core.formats`` container.
+            max_batch: flush-width override for this operator.
+            deadline_s / max_pending: per-operator policy overrides.
+            config: a ``core.planconfig.PlanConfig`` carrying the compile
+                options (``format``, ``sigma``, ``value_dtype``, a
+                per-operator ``backend``, ``validate``; ``chip`` and
+                ``device`` are the server's).
+            **plan_kw: deprecated bare-kwarg aliases for the config fields
+                (one ``DeprecationWarning``, folded into a config).
+        """
+        cfg = self._server_config(config, plan_kw,
+                                  api="BatchingSpMVServer.register")
+        plan = SpMVPlan.compile(matrix, cfg)
+        # the width policy prices the container and kernel the plan actually
+        # executes (after any format="auto" conversion), not the source
+        policy = self._policy(plan, max_batch, deadline_s, max_pending)
+
+        def rebuild(be, _m=matrix, _cfg=cfg):
+            # matrix already checked at register time
+            return SpMVPlan.compile(_m, _cfg.replace(backend=be, validate="off"))
+
+        self._queues[name] = OperatorQueue(
+            plan, policy, self._clock,
+            validate=self.validate, resilience=self.resilience,
+            rebuild=rebuild,
+            ladder=degradation_ladder(plan.report.format, plan.report.kernel,
+                                      plan.matrix, plan.device))
+        return plan.report
+
+    # -- batched submission -------------------------------------------------
+
+    def submit(self, name: str, x: torch.Tensor, *,
+               timeout_s: float | None = None) -> SpMVFuture:
+        """Enqueue one ``y = A @ x`` request; returns its future.
+
+        Flushes the operator's batch when the policy width is reached or
+        its deadline has elapsed; width-1 policies execute synchronously
+        (exactly ``plan(x)``).  Raises ``BackpressureError`` at the
+        ``max_pending`` cap.  ``timeout_s`` overrides the resilience
+        policy's per-request deadline.
+        """
+        return self._queues[name].submit(x, timeout_s=timeout_s)
+
+    def submit_many(self, name: str, xs) -> list[SpMVFuture]:
+        """Submit a burst of requests in order; returns their futures."""
+        return [self.submit(name, x) for x in xs]
+
+    def pump(self) -> int:
+        """Flush every operator queue whose deadline has elapsed (the
+        cooperative stand-in for a background flusher); returns the number
+        of requests answered."""
+        return sum(q.flush() for q in self._queues.values() if q.due())
+
+    def flush(self, name: str | None = None) -> int:
+        """Force-flush one operator (or all); returns requests answered."""
+        if name is not None:
+            return self._queues[name].flush()
+        return sum(q.flush() for q in self._queues.values())
+
+    def pending(self, name: str) -> int:
+        """Queued (not yet executed) request count for one operator."""
+        return len(self._queues[name])
+
+    # -- direct (unbatched) paths ------------------------------------------
+
+    def plan(self, name: str) -> SpMVPlan:
+        """The compiled plan behind a registered operator."""
+        return self._queues[name].plan
+
+    def spmv(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """One synchronous query, bypassing the batcher (counted in stats)."""
+        self._queues[name].stats.calls += 1
+        return self._queues[name].plan(x)
+
+    def spmm(self, name: str, X: torch.Tensor) -> torch.Tensor:
+        """One caller-assembled batch: X (N, K) -> Y (M, K), counted as K
+        queries and one batch."""
+        self._queues[name].stats.record_batch(int(X.shape[1]))
+        return self._queues[name].plan.spmm(X)
+
+    # -- accounting ---------------------------------------------------------
+
+    def stats(self) -> dict:
+        """Per-operator serving stats.
+
+        Each entry carries the batching counters: ``requests`` (submitted),
+        ``calls`` (queries answered), ``batches``, ``mean_batch_width``
+        (real columns per flush), ``padding_ratio`` (zero columns /
+        streamed columns), ``fast_path_calls``, the policy's
+        ``batch_width`` / ``deadline_s``, the robustness counters --
+        ``shed``, ``retried``, ``degraded``, ``deadline_missed``,
+        ``failed``, ``breaker_trips`` and the remaining degrade ``ladder``
+        -- and the plan report's ``format``, ``kernel``, ``nnz``,
+        ``predicted_gflops`` and ``predicted_bytes_per_call``.
+        """
+        out = {}
+        for name, q in self._queues.items():
+            r = q.plan.report
+            st = q.stats
+            out[name] = {
+                "calls": st.calls,
+                "requests": st.requests,
+                "batches": st.batches,
+                "mean_batch_width": st.mean_batch_width,
+                "padding_ratio": st.padding_ratio,
+                "fast_path_calls": st.fast_path_calls,
+                "shed": st.shed,
+                "retried": st.retried,
+                "degraded": st.degraded,
+                "deadline_missed": st.deadline_missed,
+                "failed": st.failed,
+                "breaker_trips": q.breaker.trips,
+                "ladder": tuple(q.ladder),
+                "pending": len(q),
+                "batch_width": q.policy.width,
+                "deadline_s": q.policy.deadline_s,
+                "format": r.format,
+                "kernel": r.kernel,
+                "nnz": r.nnz,
+                "predicted_gflops": r.predicted_gflops,
+                "predicted_bytes_per_call": r.balance_bytes_per_flop * 2.0 * r.nnz,
+            }
+        return out
+
+
+class SparseOperatorServer(BatchingSpMVServer):
+    """Back-compat name for the direct-call serving surface (``register`` +
+    ``spmv`` / ``spmm``); new code should use ``BatchingSpMVServer`` and
+    the ``submit`` path."""

@@ -792,3 +792,66 @@ def test_tunedb_warms_a_pick_on_the_card_only_for_its_platform(cuda_device):
         plan = SpMVPlan.compile(fresh, PlanConfig(format="auto", tuning=db,
                                                   device=cuda_device))
         assert plan.report.format == (other if warm else cold.format), platform
+
+
+def _card_requests(n: int, k: int, device, seed: int = 3) -> list:
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return list(torch.randn((k, n), generator=gen, device=device, dtype=torch.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,fmt,kernel", [("surrogate3000", "sell", "sell_spmm"),
+                                             ("exact4", "matrix_free", "mf_spmv")])
+def test_serving_flush_runs_the_spmm_kernel_on_the_card(cuda_device, name, fmt, kernel):
+    """A width-4 flush of 3 requests launches kernel 5 once on a padded
+    operand (SELL) or kernel 4 once a real column, unpadded (matrix-free),
+    and every future agrees with the ``torch`` plan."""
+    from repro_torch.serve import BatchingSpMVServer
+    m = port_matrix(name)
+    m = PF.detect_matrix_free(m) if fmt == "matrix_free" else PF.convert(m, fmt)
+    srv = BatchingSpMVServer(max_batch=4, deadline_s=60.0)
+    report = srv.register("A", m)
+    assert srv.device == cuda_device and report.spmm_kernel == "cuda"
+    assert srv.stats()["A"]["ladder"] == ()
+    xs = _card_requests(m.shape[1], 3, cuda_device)
+    before = CB.launch_counts()
+    futs = srv.submit_many("A", xs)
+    assert srv.flush("A") == 3
+    ys = [f.result() for f in futs]
+    after = CB.launch_counts()
+    assert after[kernel] - before[kernel] == (1 if kernel == "sell_spmm" else 3)
+    plain = SpMVPlan.compile(m, PlanConfig(device=cuda_device, backend="torch"))
+    for x, y in zip(xs, ys):
+        want = plain(x)
+        assert y.device == cuda_device
+        assert float((y - want).abs().max() / want.abs().max()) <= 1e-12
+    st = srv.stats()["A"]
+    assert st["padding_ratio"] == (0.25 if kernel == "sell_spmm" else 0.0)
+    assert st["degraded"] == st["failed"] == 0
+
+
+@pytest.mark.cuda
+def test_serving_persistent_kernel_failure_is_a_kernel_fault_on_the_card(cuda_device):
+    """A ``cuda`` plan has no plain rung to fall to: a persistent kernel
+    failure fails each request with ``KernelFault`` and no degrade, and the
+    operator serves the clean bits again once the fault is gone."""
+    from repro_torch.serve import BatchingSpMVServer, KernelFault, ResiliencePolicy
+    from repro_torch.testing import faults
+    m = PF.convert(port_matrix("surrogate3000"), "sell")
+    srv = BatchingSpMVServer(max_batch=4, deadline_s=60.0,
+                             resilience=ResiliencePolicy(max_retries=0, breaker_threshold=1))
+    srv.register("A", m)
+    xs = _card_requests(m.shape[1], 4, cuda_device, seed=4)
+    clean = [f.result() for f in srv.submit_many("A", xs)]
+    try:
+        with faults.inject("plan.spmm", error=RuntimeError("cuda broken"), times=None,
+                           when=lambda ctx: ctx.get("kernel") == "cuda"):
+            errs = [f.error() for f in srv.submit_many("A", xs)]
+    finally:
+        faults.reset()
+    assert all(isinstance(e, KernelFault) and e.kernel == "cuda" for e in errs)
+    st = srv.stats()["A"]
+    assert st["degraded"] == 0 and st["failed"] == 4 and st["kernel"] == "cuda"
+    assert st["ladder"] == ()
+    again = [f.result() for f in srv.submit_many("A", xs)]
+    assert all(torch.equal(a, b) for a, b in zip(clean, again))

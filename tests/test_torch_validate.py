@@ -197,11 +197,13 @@ def test_validate_vector_policies(kind):
         PV.validate_vector(x, 3, policy="lenient")
 
 
+@pytest.mark.parametrize("rows", (6, 0))
 @pytest.mark.parametrize("dtype", (np.float16, np.float32, np.float64))
-def test_check_finite_columns_matches_reference(dtype):
+def test_check_finite_columns_matches_reference(dtype, rows):
     import jax.numpy as jnp
-    Y = np.random.default_rng(0).standard_normal((6, 5)).astype(dtype)
-    Y[2, 1], Y[5, 3] = np.nan, np.inf
+    Y = np.random.default_rng(0).standard_normal((rows, 5)).astype(dtype)
+    if rows:
+        Y[2, 1], Y[5, 3], Y[0, 4], Y[3, 4] = np.nan, np.inf, -np.inf, np.nan
     want = RV.check_finite_columns(jnp.asarray(Y))
     got_t = PV.check_finite_columns(torch.from_numpy(Y))
     assert got_t.dtype == torch.bool and got_t.device == torch.device("cpu")
