@@ -100,7 +100,26 @@ repository configures:
    corpus spec: transient retry, poison isolation, a persistent ``cuda``
    failure ending in a ``KernelFault`` on each request (a card kernel has
    no plain rung to fall to) and clean bits after, queue-full shedding, a
-   request timeout, and the bits back after ``faults.reset()``.
+   request timeout, and the bits back after ``faults.reset()``;
+13. distributed SpMV on a mesh of 4 shards that all sit on cuda:0 (so
+   nothing is communicated; the times are no scaling result): (a) the
+   packings' host seconds at N = 1,201,200; the surrogate compiled under
+   both partitioners (``nnz``, ``rows``), with ``slab_format="auto"`` and
+   ``"ell"``, in each variant (``allgather``, ``ring``, ``overlap``);
+   ``plan(x)`` in f64 and f32 and ``plan.spmm(X)`` at K = 16 against a host
+   f64 product and the csr plan (kernel 3), two calls bitwise, kernel 1
+   (kernel 5 for SpMM) launched once a non-empty slab and nothing else, ms
+   per SpMV beside the local sell and csr plans, the modelled against the
+   read matrix bytes, the modelled collective bytes beside the bytes
+   moved, and each shard's slabs timed alone (the straggler of each cut
+   beside the modelled imbalance); (b) 64 steps of ``lanczos(m, n,
+   mesh=mesh4)`` against the csr plan's from the same v0 (alphas and betas
+   within 1e-8, E0 within 1e-10) and its time a step beside phase 3's; (c)
+   ``register_distributed`` on the mesh (one flush = one ``plan.spmm``,
+   kernel 5 once a slab, futures against ``plan(x)``, the mesh stats) and,
+   on a small corpus spec, a transient ``dist.spmm`` failure retried
+   bitwise and a ``ShardDeath`` ending in a ``KernelFault`` on each request
+   (no degrade), clean bits after ``faults.reset()``.
 
 Phase 7 ends with the measured warm path: every timed candidate of its
 seven matrices recorded into a ``core.tunedb.TuneDB`` (keyed by signature,
@@ -110,7 +129,8 @@ new object must then compile, under ``PlanConfig(format="auto",
 tuning=db)``, to the measured fastest format; ``fit_efficiency_from_db`` is
 logged beside the committed ``h100`` table.
 
-It prints a ``kernels`` JSON line before the last line and ends with
+It prints a ``kernels`` JSON line (with each kernel's launches on the
+serving and the distributed paths) before the last line and ends with
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
 exits non-zero; without CUDA, or without the repository beside it, it
 prints no result and exits non-zero.
@@ -306,6 +326,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(REPO / "src"))
     try:
         from repro_torch.core import corpus as CORPUS
+        from repro_torch.core import distributed as DIST
+        from repro_torch.core import distributed_plan as DP
         from repro_torch.core import formats as F
         from repro_torch.core import io as IO
         from repro_torch.core import matrices as M
@@ -1825,14 +1847,281 @@ def main(argv=None) -> int:
         f"{out['serving']['host_s']:.1f} s")
     del srv, srv_off, solo, duo, s1, s2, s3
 
+    # --- 13. distributed SpMV on a 4-shard mesh of the card ------------------------
+    # P = 4 shards share cuda:0 (the single-controller mesh's repeatable
+    # devices): every pass of an x shard stays on the card, so nothing is
+    # communicated and the times below are no scaling result
+    t13 = time.perf_counter()
+    mesh4 = DIST.make_mesh_1d(n_devices=4, device=dev)
+    P4 = len(mesh4.devices)
+    plan_csr = SpMVPlan.compile(m, PlanConfig(format="csr"))   # phase 4b's, kernel 3
+    rp_h, ci_h = F._np(m.row_ptr).astype(np.int64), F._np(m.col_idx)
+    rows_h = np.repeat(np.arange(args.n), np.diff(rp_h))
+    v_h = F._np(m.val).astype(np.float64)
+
+    def host_product(a):
+        """The f64 product A @ a on the host ((n,) or (n, K))."""
+        if a.ndim == 1:
+            return np.bincount(rows_h, weights=v_h * a[ci_h], minlength=args.n)
+        return np.stack([np.bincount(rows_h, weights=v_h * a[ci_h, j], minlength=args.n)
+                         for j in range(a.shape[1])], axis=1)
+
+    gen13 = np.random.default_rng(13)
+    x13 = gen13.standard_normal(args.n)
+    X13 = gen13.standard_normal((args.n, 16))
+    t0 = time.perf_counter()
+    want13 = {"x": torch.from_numpy(host_product(x13)).to(dev),
+              "X": torch.from_numpy(host_product(X13)).to(dev)}
+    host_product_s = time.perf_counter() - t0
+    x13_d, X13_d = torch.from_numpy(x13).to(dev), torch.from_numpy(X13).to(dev)
+    y13_csr = plan_csr(x13_d)
+
+    def check13(what, got, want):
+        """rel err against an f64 reference, within TOL of ``got``'s type."""
+        acc = str(got.dtype).replace("torch.", "")
+        err, rel = rel_err(torch, got, want)
+        ok = bool(torch.isfinite(got).all()) and rel <= TOL[acc]
+        checks.append({"kernel": "distributed", "case": what, "acc": acc,
+                       "max_abs_err": err, "rel_err": rel, "ok": ok})
+        check(ok, f"distributed {what}: rel err {rel:.3e} > {TOL[acc]:g}")
+        return err
+
+    def blocks_of(p_):
+        return sum(op is not None for row in p_.operands for op in row)
+
+    def moved_bytes(p_, row_bytes):
+        """Bytes an x shard pass moves between distinct devices in one call
+        (0 when every shard sits on one card)."""
+        d_, cs_ = p_.mesh.devices, p_.blocks.col_shard
+        if p_.variant == "allgather":
+            return sum(P4 * cs_ * row_bytes for j in range(P4) if d_[j] != d_[0])
+        return (P4 - 1) * sum(cs_ * row_bytes for j in range(P4) if d_[j] != d_[(j + 1) % P4])
+
+    # 13a. the packings' host seconds (the plans below pack again, cached)
+    pack_s = {}
+    for pk in DP.SLAB_FORMATS:
+        for lc in (False, True):
+            t0 = time.perf_counter()
+            b_ = DP.pack_shard_slabs(m, P4, balance="nnz", pack=pk, local_cols=lc)
+            pack_s[f"{pk}/{'ring' if lc else 'allgather'}"] = {
+                "s": time.perf_counter() - t0, "stored_over_nnz": b_.stored / m.nnz}
+            del b_
+    log("[dist] packing at N=%d, P=4, nnz cut: " % args.n + ", ".join(
+        f"{k} {v['s']:.2f} s ({v['stored_over_nnz']:.2f}x nnz stored)"
+        for k, v in pack_s.items()) + f"; host f64 products {host_product_s:.1f} s")
+    dist_rows, dplans = [], {}
+    for bal in ("nnz", "rows"):
+        for slab in ("auto", "ell"):
+            for variant in DP.VARIANTS:
+                t0 = time.perf_counter()
+                p_ = DP.compile_distributed_spmv_plan(m, mesh4, variant=variant, balance=bal,
+                                                      slab_format=slab)
+                compile_s = time.perf_counter() - t0
+                dplans[(bal, slab, variant)] = p_
+                what = f"{variant} {bal} {slab}->{p_.slab_format}"
+                check(p_.slab_backend == "cuda", f"distributed {what}: runs {p_.slab_backend}")
+                nb = blocks_of(p_)
+                check(nb <= (P4 if variant == "allgather" else P4 * P4) and nb > 0,
+                      f"distributed {what}: {nb} slab operands")
+                CB.reset_launch_counts()
+                y_ = p_(x13_d)
+                c1 = CB.launch_counts()
+                Y_ = p_.spmm(X13_d)
+                c2 = CB.launch_counts()
+                check(c1["sell_spmv"] == nb and sum(c1.values()) == nb,
+                      f"distributed {what}: plan(x) launched {c1}, want sell_spmv {nb}")
+                check(c2["sell_spmm"] == nb and sum(c2.values()) == 2 * nb,
+                      f"distributed {what}: plan.spmm launched {c2}, want sell_spmm {nb}")
+                err = max(check13(f"{what} f64 vs host", y_, want13["x"]),
+                          check13(f"{what} f64 vs csr plan", y_, y13_csr),
+                          check13(f"{what} f32 vs host", p_(x13_d.float()), want13["x"]),
+                          check13(f"{what} spmm K=16 f64 vs host", Y_, want13["X"]))
+                check(torch.equal(p_(x13_d), y_) and torch.equal(p_.spmm(X13_d), Y_),
+                      f"distributed {what}: two calls differ in their bits")
+                read = sum(op.nbytes for row in p_.operands for op in row if op is not None)
+                r_ = {"variant": variant, "balance": bal, "slab_format": slab,
+                      "pack": p_.slab_format, "launches_spmv": nb, "max_abs_err": err,
+                      "ms": time_ms(torch, lambda: p_(x13_d)),
+                      "spmm_ms": time_ms(torch, lambda: p_.spmm(X13_d), reps=10),
+                      "compile_s": compile_s, "imbalance": p_.imbalance,
+                      "local_fraction": p_.local_fraction,
+                      "modelled_matrix_bytes": p_.traffic["hbm_stream"],
+                      "read_matrix_bytes": read,
+                      "modelled_collective_bytes": p_.traffic["collective"],
+                      "moved_bytes": moved_bytes(p_, 8)}
+                dist_rows.append(r_)
+                del y_, Y_
+                log(f"[dist] {what}: {r_['ms']:.4f} ms/SpMV, spmm K=16 {r_['spmm_ms']:.4f} ms; "
+                    f"{nb} kernel launches a call; compile {compile_s:.2f} s; matrix bytes "
+                    f"modelled {r_['modelled_matrix_bytes'] / 1e6:.1f} MB, read "
+                    f"{read / 1e6:.1f} MB; collective modelled "
+                    f"{r_['modelled_collective_bytes'] / 1e6:.1f} MB, moved "
+                    f"{r_['moved_bytes']} B; imbalance {p_.imbalance:.5f}, local "
+                    f"{p_.local_fraction:.4f}; max abs err {err:.2e}")
+    local_ms = {"sell": time_ms(torch, lambda: plan_s(x13_d)),
+                "csr": time_ms(torch, lambda: plan_csr(x13_d))}
+    # each shard's slabs alone: the measured straggler of each cut
+    straggler = {}
+    for bal in ("nnz", "rows"):
+        for variant in ("allgather", "ring"):
+            p_ = dplans[(bal, "auto", variant)]
+            mult, cs_ = p_.mults["spmv"], p_.blocks.col_shard
+            xp = DIST.pad_x(x13_d, P4 * cs_)
+
+            def shard_work(p):
+                def run():
+                    y_ = None
+                    for s in range(p_.blocks.q_blocks):
+                        q = (p + s) % p_.blocks.q_blocks
+                        op = p_.operands[p][q]
+                        xs = xp if variant == "allgather" else xp[q * cs_:(q + 1) * cs_]
+                        if op is not None:
+                            y_ = mult(op, xs, add_to=y_)
+                return run
+
+            ms_ = [time_ms(torch, shard_work(p)) for p in range(P4)]
+            pred = [r.times[p_.slab_format] for r in p_.shard_reports]
+            # kernel 5 alone on each shard's slabs (K = 16)
+            mm, Xp = p_.mults["spmm"], DIST.pad_x(X13_d, P4 * cs_)
+            mm_ms = [time_ms(torch, lambda p=p: [
+                mm(p_.operands[p][q], Xp if variant == "allgather" else
+                   Xp[q * cs_:(q + 1) * cs_]) for q in range(p_.blocks.q_blocks)
+                if p_.operands[p][q] is not None], reps=10) for p in range(P4)]
+            del Xp
+            straggler[f"{bal}/{variant}"] = {
+                "shard_ms": ms_, "max_over_mean": max(ms_) / float(np.mean(ms_)),
+                "spmm_shard_ms": mm_ms,
+                "blocks_per_shard": [sum(op is not None for op in row) for row in p_.operands],
+                "modelled_imbalance": p_.imbalance,
+                "predicted_max_over_mean": max(pred) / float(np.mean(pred)),
+                "partition_imbalance": DIST.partition_imbalance(m, p_.blocks.bounds)}
+            log(f"[dist] straggler {bal} cut, {variant} slabs ({p_.slab_format}): shard ms "
+                + " / ".join(f"{t:.4f}" for t in ms_)
+                + f" (kernel 5 at K=16: " + " / ".join(f"{t:.4f}" for t in mm_ms)
+                + f"; blocks {straggler[f'{bal}/{variant}']['blocks_per_shard']})"
+                + f"; max/mean {straggler[f'{bal}/{variant}']['max_over_mean']:.4f} beside the "
+                f"modelled imbalance {p_.imbalance:.5f} (nnz cut of the bounds "
+                f"{straggler[f'{bal}/{variant}']['partition_imbalance']:.5f})")
+    log(f"[dist] local plans on the same x: sell {local_ms['sell']:.4f} ms, csr "
+        f"{local_ms['csr']:.4f} ms (kernel 3)")
+
+    # 13b. Lanczos through lanczos(mesh=): the overlap plan, nnz cut, auto pack
+    plan_l = DP.compile_distributed_spmv_plan(m, mesh4, variant="overlap")
+    nb_l = blocks_of(plan_l)
+    CB.reset_launch_counts()
+    res_d = lanczos(m, args.n, m=args.lanczos_steps, mesh=mesh4, v0=v0)
+    counts = CB.launch_counts()
+    launches_13b = counts["sell_spmv"]
+    check(launches_13b == res_d.n_spmv * nb_l and sum(counts.values()) == launches_13b,
+          f"distributed Lanczos: {counts} for {res_d.n_spmv} SpMVs x {nb_l} slabs")
+    res_cl = lanczos(plan_csr, args.n, m=args.lanczos_steps, v0=v0)
+    da = float(np.max(np.abs(res_d.alphas - res_cl.alphas) / np.abs(res_cl.alphas)))
+    db = float(np.max(np.abs(res_d.betas - res_cl.betas) / np.abs(res_cl.betas)))
+    de = abs(float(res_d.eigenvalues[0]) - float(res_cl.eigenvalues[0]))
+    check(res_d.alphas.shape == res_cl.alphas.shape and da <= 1e-8 and db <= 1e-8
+          and de <= 1e-10 * max(1.0, abs(float(res_cl.eigenvalues[0]))),
+          f"distributed Lanczos vs the csr plan: alpha {da:.2e}, beta {db:.2e}, E0 {de:.2e}")
+    _, spmv_d, wall_d = timed_lanczos(plan_l, v0, True)
+    # phase 3's hybrid plan again, now: its step in the same warm state
+    _, spmv_h, wall_h = timed_lanczos(SpMVPlan.compile(hyb, PlanConfig()), v0, True)
+    lanczos13 = {"steps": res_d.n_spmv, "E0": float(res_d.eigenvalues[0]),
+                 "alpha_rel_diff_vs_csr": da, "beta_rel_diff_vs_csr": db, "E0_diff": de,
+                 "launches": launches_13b, "spmv_ms_median": float(np.median(spmv_d)),
+                 "step_ms": wall_d / res_d.n_spmv,
+                 "phase3_spmv_ms_median": main["spmv_ms_median"],
+                 "phase3_step_ms": main["lanczos_wall_ms"] / main["steps"],
+                 "hybrid_now_spmv_ms_median": float(np.median(spmv_h)),
+                 "hybrid_now_step_ms": wall_h / len(spmv_h)}
+    log(f"[dist] lanczos(mesh=4 shards, overlap, {plan_l.slab_format}): {res_d.n_spmv} steps, "
+        f"{launches_13b} sell_spmv launches ({nb_l} a SpMV); vs csr plan alpha {da:.1e}, "
+        f"beta {db:.1e}, E0 {de:.1e}; {lanczos13['spmv_ms_median']:.4f} ms/SpMV, "
+        f"{lanczos13['step_ms']:.4f} ms/step (phase 3: {main['spmv_ms_median']:.4f}, "
+        f"{lanczos13['phase3_step_ms']:.4f}; its hybrid plan rerun now: "
+        f"{lanczos13['hybrid_now_spmv_ms_median']:.4f}, {lanczos13['hybrid_now_step_ms']:.4f})")
+
+    # 13c. serving over the mesh: a flush is one plan.spmm, kernel 5 once a slab
+    srv13 = SERVE.BatchingSpMVServer(chip=card, deadline_s=10.0)
+    rep13 = srv13.register_distributed("surrogate", m, mesh=mesh4, variant="overlap")
+    plan13 = srv13.plan("surrogate")
+    nb13 = blocks_of(plan13)
+    w13 = srv13.stats()["surrogate"]["batch_width"]
+    check(rep13.kernel == "overlap" and plan13.slab_backend == "cuda" and w13 > 1,
+          f"distributed serving: {rep13}, width {w13}")
+    gen13t = torch.Generator(device=dev).manual_seed(13)
+    xs13 = list(torch.randn((w13, args.n), generator=gen13t, device=dev, dtype=torch.float64))
+    CB.reset_launch_counts()
+    ys13 = [f.result() for f in srv13.submit_many("surrogate", xs13)]
+    counts = CB.launch_counts()
+    launches_13c = counts["sell_spmm"]
+    check(launches_13c == nb13 and sum(counts.values()) == nb13,
+          f"distributed serving: one flush launched {counts}, want sell_spmm {nb13}")
+    err13 = max(rel_err(torch, y, plan13(x))[1] for x, y in zip(xs13, ys13))
+    check(err13 <= TOL["float64"], f"distributed serving: futures vs plan(x) {err13:.3e}")
+    st13 = srv13.stats()["surrogate"]
+    mesh_stats = {k: st13[k] for k in ("variant", "parts", "slab_format", "imbalance",
+                                       "local_fraction", "collective_bytes_per_call")}
+    check(st13["batches"] == 1 and st13["failed"] == 0 and st13["ladder"] == ()
+          and st13["parts"] == P4, f"distributed serving: stats {st13}")
+    del ys13, xs13
+    # faults on a small corpus spec: transient dist.spmm retried bitwise; a
+    # dead shard a KernelFault on each request (no plain rung under cuda)
+    cm13 = CORPUS.build("holstein_surrogate")
+    xs_c13 = list(torch.randn((4, cm13.shape[1]), generator=gen13t, device=dev,
+                              dtype=torch.float64))
+
+    def small13(pol):
+        s_ = SERVE.BatchingSpMVServer(chip=card, max_batch=4, deadline_s=60.0,
+                                      clock=FakeClock(), resilience=pol)
+        s_.register_distributed("c", cm13, mesh=mesh4, variant="overlap")
+        return s_
+
+    s13a = small13(SERVE.ResiliencePolicy(max_retries=1))
+    clean13 = [f.result() for f in s13a.submit_many("c", xs_c13)]
+    with faults.inject("dist.spmm", error=RuntimeError("transient"), times=1) as sp:
+        got13 = [f.result() for f in s13a.submit_many("c", xs_c13)]
+    check(sp.fired == 1 and s13a.stats()["c"]["retried"] == 1
+          and all(torch.equal(a, b) for a, b in zip(clean13, got13)),
+          "distributed resilience: a transient dist.spmm failure was not retried bitwise")
+    s13b = small13(SERVE.ResiliencePolicy(max_retries=0, breaker_threshold=1))
+    with faults.inject("dist.spmm", error=faults.ShardDeath(2), times=None):
+        errs13 = [f.error() for f in s13b.submit_many("c", xs_c13)]
+    st13b = s13b.stats()["c"]
+    check(all(isinstance(e, SERVE.KernelFault) and isinstance(e.__cause__, faults.ShardDeath)
+              for e in errs13) and st13b["degraded"] == 0 and st13b["failed"] == 4
+          and s13b.plan("c").slab_backend == "cuda",
+          f"distributed resilience: a dead shard gave {errs13}, stats {st13b}")
+    faults.reset()
+    check(all(torch.equal(f.result(), c) for f, c in zip(s13b.submit_many("c", xs_c13),
+                                                          clean13)),
+          "distributed resilience: the bits did not come back after faults.reset()")
+    record("sell_spmv", launches_distributed=launches_13b)
+    record("sell_spmm", launches_distributed=launches_13c)
+    out["distributed"] = {
+        "mesh": [str(d) for d in mesh4.devices], "packing": pack_s,
+        "host_product_s": host_product_s, "plans": dist_rows, "local_ms": local_ms,
+        "straggler": straggler, "lanczos": lanczos13,
+        "serving": {"width": w13, "launches_sell_spmm": launches_13c, "blocks": nb13,
+                    "max_rel_err_vs_plan": err13, "mesh_stats": mesh_stats},
+        "host_s": time.perf_counter() - t13}
+    log(f"[dist] serving: register_distributed on 4 shards, width {w13}: one flush = "
+        f"{launches_13c} sell_spmm launches (one a slab), futures vs plan(x) {err13:.1e}; "
+        f"mesh stats {mesh_stats}; resilience: transient retry bitwise, ShardDeath -> "
+        f"KernelFault x4, no degrade, clean bits after reset; phase 13 took "
+        f"{out['distributed']['host_s']:.1f} s")
+    del srv13, s13a, s13b, dplans, plan13, plan_l
+
     # --- report -----------------------------------------------------------------
     names = ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv", "sell_spmm", "stream_triad",
              "gather_scp", "bell_spmm", "grouped_gemm", "grouped_gemm_wgmma")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # launches_serving: phase 12's count (0 for a kernel off the serving path)
+    # launches_serving: phase 12's count (0 for a kernel off the serving path);
+    # launches_distributed: phase 13's (kernel 1 in its Lanczos, kernel 5 in its
+    # served flush; 0 for a kernel off the distributed path)
     kernels = [{**{k: rows[n].get(k) for k in keys},
-                "launches_serving": rows[n].get("launches_serving", 0)} for n in names]
+                "launches_serving": rows[n].get("launches_serving", 0),
+                "launches_distributed": rows[n].get("launches_distributed", 0)}
+               for n in names]
     for kr in kernels:
         check(all(kr[k] is not None for k in keys if k != "library_ms")
               and (kr["library_ms"] is not None or kr["name"] == "gather_scp"),
@@ -1841,6 +2130,8 @@ def main(argv=None) -> int:
         check(kr["launches_serving"] > 0 or kr["name"] not in ("sell_spmm", "sell_spmv",
                                                                "mf_spmv"),
               f"{kr['name']} was never launched on the serving path")
+        check(kr["launches_distributed"] > 0 or kr["name"] not in ("sell_spmm", "sell_spmv"),
+              f"{kr['name']} was never launched on the distributed path")
     out["kernels"] = [rows[n] for n in names]
     for kr in out["kernels"]:
         kr["bound_ms_at_measured_bw"] = kr["bound_ms"] * H100.hbm_bytes_per_s / \

@@ -40,16 +40,31 @@ class LanczosBreakdown(RuntimeError):
         self.beta = beta
 
 
-def as_apply(op, config=None, device=None) -> Apply:
-    """A callable (closure or ``SpMVPlan``) passes through; a format
-    container is compiled into a plan once (``config`` a ``PlanConfig``;
-    ``device`` fills its device when the config names none)."""
+def as_apply(op, config=None, device=None, *, mesh=None,
+             variant: str = "overlap") -> Apply:
+    """A callable (closure, ``SpMVPlan`` or ``DistributedSpMVPlan``) passes
+    through; a format container is compiled into a plan once (``config`` a
+    ``PlanConfig``; ``device`` fills its device when the config names none).
+    With ``mesh`` (a ``core.distributed.Mesh``) a container is compiled into
+    a ``DistributedSpMVPlan`` of ``variant`` over the mesh instead;
+    ``config.format`` / ``config.value_dtype`` apply to local plans only and
+    are refused there."""
     if callable(op):
         return op
-    from .plan import SpMVPlan
     from .planconfig import PlanConfig
 
     cfg = PlanConfig() if config is None else config
+    if mesh is not None:
+        if cfg.format is not None or cfg.value_dtype is not None:
+            raise ValueError(
+                "format=/value_dtype= apply to local plans only; distributed compiles "
+                "pick their slab packing per partition (see "
+                "compile_distributed_spmv_plan's slab_format)")
+        from .distributed_plan import compile_distributed_spmv_plan
+
+        return compile_distributed_spmv_plan(op, mesh, variant=variant, config=cfg)
+    from .plan import SpMVPlan
+
     if cfg.device is None and device is not None:
         cfg = cfg.replace(device=device)
     return SpMVPlan.compile(op, cfg)
@@ -67,18 +82,21 @@ class LanczosResult:
 
 def lanczos(apply_A, n: int, m: int = 64, v0=None, reorthogonalize: bool = True,
             seed: int = 0, dtype=torch.float64, config=None, device=None,
-            on_breakdown: str = "raise", max_restarts: int = 2) -> LanczosResult:
+            on_breakdown: str = "raise", max_restarts: int = 2,
+            mesh=None) -> LanczosResult:
     """m-step Lanczos on the symmetric operator ``apply_A`` of dimension n.
 
     Each iteration performs exactly one SpMV.  The vectors live on the
-    plan's device (``apply_A.device`` for a plan; else ``device``, which
-    defaults to the card).  A non-finite coefficient raises
+    plan's device (``apply_A.device`` for a plan -- the mesh's first device
+    for a distributed one; else ``device``, which defaults to the card).
+    With ``mesh`` a container is compiled into a distributed plan over it
+    (``as_apply``).  A non-finite coefficient raises
     :class:`LanczosBreakdown`; ``on_breakdown="restart"`` retries from a
     reseeded start vector up to ``max_restarts`` times.
     """
     if on_breakdown not in ("raise", "restart"):
         raise ValueError(f"on_breakdown={on_breakdown!r}; expected 'raise' or 'restart'")
-    apply_A = as_apply(apply_A, config, device)
+    apply_A = as_apply(apply_A, config, device, mesh=mesh)
     dev = getattr(apply_A, "device", None)
     dev = default_device(device) if dev is None else dev
     attempts = 1 + (max_restarts if on_breakdown == "restart" else 0)

@@ -113,6 +113,18 @@ def flat_sell_access_model(am: AccessModel, overhead: float = 1.0) -> AccessMode
                    index_bytes=2 * am.index_bytes * overhead)
 
 
+def balance_slab(pack: str, am: AccessModel, pad_ratio: float,
+                 nnz_per_row: float) -> float:
+    """Balance of one distributed slab pack: padded-ELL pays the partition's
+    padding ratio; flat SELL pays only per-chunk padding but adds the
+    row-index stream of a segment-sum."""
+    if pack == "ell":
+        return balance_ell(am, pad_ratio, nnz_per_row)
+    if pack == "sell":
+        return balance_sell(flat_sell_access_model(am), pad_ratio, nnz_per_row)
+    raise ValueError(f"unknown slab format {pack!r}")
+
+
 def balance_bsr(am: AccessModel, block_shape: tuple[int, int], fill_ratio: float) -> float:
     """BSR: index traffic amortized over bm*bn, invec reuse factor bm inside
     a block (each x element feeds bm rows), a resvec tile load + store per

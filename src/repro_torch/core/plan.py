@@ -64,6 +64,19 @@ class PlanReport:
     bound: str | None = None        # "memory" | "compute"
 
 
+def as_operand(x, device: torch.device, what: str) -> torch.Tensor:
+    """``x`` as a tensor on a plan's ``device``: a numpy array is moved
+    there; a tensor on another device is a ``ValueError``."""
+    if isinstance(x, np.ndarray):
+        return torch.as_tensor(x, device=device)
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{what} must be a tensor or numpy array, "
+                        f"got {type(x).__name__}")
+    if x.device != device:
+        raise ValueError(f"{what} is on {x.device}; this plan runs on {device}")
+    return x
+
+
 class SpMVPlan:
     """A compiled SpMV executor: ``plan(x) -> y`` and ``plan.spmm(X) -> Y``."""
 
@@ -86,15 +99,7 @@ class SpMVPlan:
         return getattr(self.apply_multi, "by_columns", False)
 
     def _operand(self, x, what: str) -> torch.Tensor:
-        if isinstance(x, np.ndarray):
-            return torch.as_tensor(x, device=self.device)
-        if not isinstance(x, torch.Tensor):
-            raise TypeError(f"{what} must be a tensor or numpy array, "
-                            f"got {type(x).__name__}")
-        if x.device != self.device:
-            raise ValueError(f"{what} is on {x.device}; this plan runs on "
-                             f"{self.device}")
-        return x
+        return as_operand(x, self.device, what)
 
     def _fire(self, op: str):
         return faults.fire(f"plan.{op}", ctx={"op": op, "format": self.report.format,

@@ -101,7 +101,7 @@ def _ensure_populated() -> None:
     if _POPULATED:
         return
     _POPULATED = True
-    from . import bsr, coo, csr, dia, ell, hybrid, jds, matrix_free, sell  # noqa: F401
+    from . import bsr, coo, csr, dia, ell, hybrid, jds, matrix_free, sell, slab  # noqa: F401
 
 
 def probe_cuda(matrix, ctx: KernelContext) -> Capability:
@@ -132,10 +132,12 @@ def default_cost(fmt: str, backend: str):
 
 
 def register_kernel(format: str, op: str, backend: str, *, auto: bool | None = None,
-                    description: str = ""):
+                    description: str = "", cost: Callable | None = None):
     """Decorator: the decorated function is the entry's build hook.  Every
     entry takes every value dtype of ``core.formats.VALUE_DTYPES``; loop
-    entries are never auto-selected."""
+    entries are never auto-selected.  ``cost`` replaces the roofline cost
+    hook (the slab entries, whose operand is no container, rank by a flat
+    nominal cost)."""
     if op not in OPS:
         raise ValueError(f"unknown op {op!r}; expected one of {OPS}")
     if backend not in BACKENDS:
@@ -144,7 +146,7 @@ def register_kernel(format: str, op: str, backend: str, *, auto: bool | None = N
     def deco(build):
         probe = probe_cuda if backend == "cuda" else _probe_ok
         entry = KernelEntry(format, op, backend, build, probe,
-                            default_cost(format, backend),
+                            cost or default_cost(format, backend),
                             backend != "loop_reference" if auto is None else auto,
                             description)
         if entry.key in _TABLE:

@@ -7,10 +7,10 @@ per request (``serve.batching`` holds the queue machinery,
 ``perfmodel.select_batch_width`` the width policy).  ``SparseOperatorServer``
 remains as the direct-call compatibility name.
 
-Not here yet: ``register_distributed`` arrives with the distributed SpMV
-plans (``core/distributed*.py``, ``kernels/slab.py``), and the token
-``Engine`` / ``GenerationConfig`` with the LM stack (``models/registry.py``,
-``serve/kv_cache.py``).
+``register_distributed`` serves a ``DistributedSpMVPlan`` over a mesh the
+same way: a flush is one distributed ``plan.spmm``.  Not here yet: the
+token ``Engine`` / ``GenerationConfig``, which arrive with the LM stack
+(``models/registry.py``, ``serve/kv_cache.py``).
 """
 from __future__ import annotations
 
@@ -96,15 +96,14 @@ class BatchingSpMVServer:
 
     # -- registration -------------------------------------------------------
 
-    def _policy(self, plan: SpMVPlan, max_batch, deadline_s,
+    def _policy(self, policy_matrix, stream_backend: str, max_batch, deadline_s,
                 max_pending) -> BatchPolicy:
         # a flush runs the plan's SpMM: its kernel's stream-byte regime
-        # prices the width
+        # (``stream_backend``) prices the width
         width = max_batch if max_batch is not None else self.max_batch
         if width is None:
             width = PM.select_batch_width(
-                plan.matrix, am=self.am, chip=self.chip,
-                backend=_LABEL_STREAM[plan.report.spmm_kernel]).width
+                policy_matrix, am=self.am, chip=self.chip, backend=stream_backend).width
         return BatchPolicy(
             width=int(width),
             deadline_s=self.deadline_s if deadline_s is None else deadline_s,
@@ -149,7 +148,8 @@ class BatchingSpMVServer:
         plan = SpMVPlan.compile(matrix, cfg)
         # the width policy prices the container and kernel the plan actually
         # executes (after any format="auto" conversion), not the source
-        policy = self._policy(plan, max_batch, deadline_s, max_pending)
+        policy = self._policy(plan.matrix, _LABEL_STREAM[plan.report.spmm_kernel],
+                              max_batch, deadline_s, max_pending)
 
         def rebuild(be, _m=matrix, _cfg=cfg):
             # matrix already checked at register time
@@ -161,6 +161,46 @@ class BatchingSpMVServer:
             rebuild=rebuild,
             ladder=degradation_ladder(plan.report.format, plan.report.kernel,
                                       plan.matrix, plan.device))
+        return plan.report
+
+    def register_distributed(self, name: str, matrix, *, mesh=None,
+                             variant: str = "overlap",
+                             max_batch: int | None = None,
+                             deadline_s: float | None = None,
+                             max_pending: int | None = None,
+                             config=None, **plan_kw):
+        """Mesh-aware registration: compile ``matrix`` into a
+        ``DistributedSpMVPlan`` over ``mesh`` (default: every card, or one
+        shard on the server's device when that is not a card).  Batching
+        applies unchanged: ``plan.spmm`` is one distributed pass, so a flush
+        also pays the x-shard exchange once for the batch.  The width is
+        priced on the CSR's composite stream (the reference's).
+        ``config.backend`` (``"auto"`` = the server-wide setting) selects
+        the slab backend.  The degrade ladder is ``loop_reference`` under a
+        ``torch`` slab backend and empty under ``cuda`` (a failing card
+        kernel ends in a ``KernelFault``, never in a plain version's
+        answer) or ``loop_reference``."""
+        from ..core.distributed import make_mesh_1d
+        from ..core.distributed_plan import _as_csr, compile_distributed_spmv_plan
+        from ..core.validate import validate_matrix
+
+        cfg = self._server_config(config, plan_kw,
+                                  api="BatchingSpMVServer.register_distributed")
+        if mesh is None:
+            mesh = make_mesh_1d(device=None if self.device.type == "cuda" else self.device)
+        matrix = validate_matrix(matrix, policy=self.validate)
+        plan = compile_distributed_spmv_plan(matrix, mesh, variant=variant, config=cfg)
+        policy = self._policy(_as_csr(matrix), "torch", max_batch, deadline_s, max_pending)
+        ladder = ["loop_reference"] if plan.slab_backend == "torch" else []
+
+        def rebuild(be, _m=matrix, _mesh=mesh, _v=variant, _cfg=cfg):
+            return compile_distributed_spmv_plan(_m, _mesh, variant=_v,
+                                                 config=_cfg.replace(backend=be))
+
+        self._queues[name] = OperatorQueue(
+            plan, policy, self._clock,
+            validate=self.validate, resilience=self.resilience,
+            rebuild=rebuild, ladder=ladder)
         return plan.report
 
     # -- batched submission -------------------------------------------------
@@ -227,7 +267,10 @@ class BatchingSpMVServer:
         ``shed``, ``retried``, ``degraded``, ``deadline_missed``,
         ``failed``, ``breaker_trips`` and the remaining degrade ``ladder``
         -- and the plan report's ``format``, ``kernel``, ``nnz``,
-        ``predicted_gflops`` and ``predicted_bytes_per_call``.
+        ``predicted_gflops`` and ``predicted_bytes_per_call``.  A
+        distributed operator adds the mesh-level ``variant``, ``parts``,
+        ``slab_format``, ``imbalance``, ``local_fraction`` and
+        ``collective_bytes_per_call`` (the modelled exchange).
         """
         out = {}
         for name, q in self._queues.items():
@@ -256,6 +299,16 @@ class BatchingSpMVServer:
                 "predicted_gflops": r.predicted_gflops,
                 "predicted_bytes_per_call": r.balance_bytes_per_flop * 2.0 * r.nnz,
             }
+            plan = q.plan
+            if hasattr(plan, "variant"):  # distributed plans: mesh-level stats
+                out[name].update({
+                    "variant": plan.variant,
+                    "parts": plan.parts,
+                    "slab_format": plan.slab_format,
+                    "imbalance": plan.imbalance,
+                    "local_fraction": plan.local_fraction,
+                    "collective_bytes_per_call": plan.traffic["collective"],
+                })
         return out
 
 

@@ -111,7 +111,8 @@ def test_registry_table_covers_the_slice():
         for be in ("torch", "loop_reference"):
             assert (fmt, "spmm", be) in keys
     cuda_spmm = {k[0] for k in keys if k[1:] == ("spmm", "cuda")}
-    assert cuda_spmm == {"matrix_free", "sell", "bsr"}  # hybrid SpMM stays torch
+    # hybrid SpMM stays torch; the distributed slabs run kernel 5
+    assert cuda_spmm == {"matrix_free", "sell", "bsr", "slab_ell", "slab_sell"}
     loops = [e for e in PR.entries() if e.backend == "loop_reference"]
     assert loops and not any(e.auto for e in loops)
 

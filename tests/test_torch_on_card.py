@@ -855,3 +855,79 @@ def test_serving_persistent_kernel_failure_is_a_kernel_fault_on_the_card(cuda_de
     assert st["ladder"] == ()
     again = [f.result() for f in srv.submit_many("A", xs)]
     assert all(torch.equal(a, b) for a, b in zip(clean, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack", ("sell", "ell"))
+@pytest.mark.parametrize("local_cols", (False, True), ids=("allgather", "ring"))
+def test_cuda_slab_entries_match_torch_on_the_card(cuda_device, pack, local_cols):
+    """Every block of a 4-shard packing through kernels 1 and 5 (the cuda
+    slab entries, on the derived descriptors) against the torch slab entry
+    on the host arrays; an empty block has no operand."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core import distributed_plan as DP
+    from repro_torch.kernels import registry as R
+    from repro_torch.kernels import slab as S
+    m = port_matrix("laplace48") if local_cols else port_matrix("surrogate3000")
+    b = DP.pack_shard_slabs(m, 4, pack=pack, local_cols=local_cols)
+    lens = D.block_lengths(m, b.bounds, local_cols)
+    ops = S.slab_operands(b, lens, "cuda", (cuda_device,) * 4, 8, m.val.dtype)
+    ref = S.slab_operands(b, lens, "torch", (cuda_device,) * 4, 8, m.val.dtype)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal(4 * b.col_shard)).to(cuda_device)
+    X = torch.from_numpy(rng.standard_normal((4 * b.col_shard, 5))).to(cuda_device)
+    ctx = R.KernelContext(device=cuda_device)
+    spmv, spmm, tv, tm = (S.slab_mult(pack, b.rows_pp, be, op, ctx) for be, op in (
+        ("cuda", "spmv"), ("cuda", "spmm"), ("torch", "spmv"), ("torch", "spmm")))
+    for p in range(4):
+        for q in range(b.q_blocks):
+            xs = x[q * b.col_shard:(q + 1) * b.col_shard] if local_cols else x
+            Xs = X[q * b.col_shard:(q + 1) * b.col_shard] if local_cols else X
+            want, want_mm = tv(ref[p][q], xs), tm(ref[p][q], Xs)
+            if ops[p][q] is None:
+                assert lens[p, q].sum() == 0 and not want.any()
+                continue
+            before = CB.launch_counts()
+            got, got_mm = spmv(ops[p][q], xs), spmm(ops[p][q], Xs)
+            torch.cuda.synchronize()
+            after = CB.launch_counts()
+            assert after["sell_spmv"] - before["sell_spmv"] == 1
+            assert after["sell_spmm"] - before["sell_spmm"] == 1
+            scale = max(1.0, float(want.abs().max()))
+            assert float((got - want).abs().max()) <= 1e-12 * scale
+            assert float((got_mm - want_mm).abs().max()) <= 1e-12 * max(
+                1.0, float(want_mm.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ("allgather", "ring", "overlap"))
+def test_cuda_distributed_plan_launch_counts_on_the_card(cuda_device, variant):
+    """A 4-shard plan on the card: kernel 1 once a non-empty slab per SpMV,
+    kernel 5 once a slab per SpMM, nothing else; results against the torch
+    slab backend and bitwise between two calls."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core import distributed_plan as DP
+    m = port_matrix("surrogate3000")
+    mesh = D.make_mesh_1d(n_devices=4, device=cuda_device)
+    plan = DP.compile_distributed_spmv_plan(m, mesh, variant=variant)
+    plain = DP.compile_distributed_spmv_plan(m, mesh, variant=variant,
+                                             config=PlanConfig(backend="torch"))
+    assert plan.slab_backend == "cuda" and plain.slab_backend == "torch"
+    blocks = sum(op is not None for row in plan.operands for op in row)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(m.shape[1])).to(cuda_device)
+    X = torch.from_numpy(np.random.default_rng(8).standard_normal((m.shape[1], 4))).to(
+        cuda_device)
+    before = CB.launch_counts()
+    y = plan(x)
+    mid = CB.launch_counts()
+    Y = plan.spmm(X)
+    torch.cuda.synchronize()
+    after = CB.launch_counts()
+    assert mid["sell_spmv"] - before["sell_spmv"] == blocks
+    assert sum(mid.values()) - sum(before.values()) == blocks
+    assert after["sell_spmm"] - mid["sell_spmm"] == blocks
+    assert sum(after.values()) - sum(mid.values()) == blocks
+    want, want_mm = plain(x), plain.spmm(X)
+    assert float((y - want).abs().max() / want.abs().max()) <= 1e-12
+    assert float((Y - want_mm).abs().max() / want_mm.abs().max()) <= 1e-12
+    assert torch.equal(plan(x), y) and y.device == cuda_device
