@@ -119,7 +119,28 @@ repository configures:
    kernel 5 once a slab, futures against ``plan(x)``, the mesh stats) and,
    on a small corpus spec, a transient ``dist.spmm`` failure retried
    bitwise and a ``ShardDeath`` ending in a ``KernelFault`` on each request
-   (no degrade), clean bits after ``faults.reset()``.
+   (no degrade), clean bits after ``faults.reset()``;
+14. the LM serving path at Qwen3-0.6B's full width (28 layers, d 1024,
+   16 / 8 heads, d_ff 3072, vocab 151,936; random weights from a seeded
+   generator on the card): (a) the parameter count against
+   ``Model.total_params()``; (b) at f32 compute, prefill's last logits and
+   one decode step against ``lm_forward`` at positions S - 1 and S (B = 2,
+   S = 16, within 1e-4 of max|logits|); (c) the same parameters through
+   the port's CPU path on the same tokens (1e-4 relative); (d)
+   ``launch.serve.main(["--arch", "qwen3-0.6b", "--requests", "4"])``
+   (prompt 16, 24 new tokens, max_len 128, greedy, bf16 compute), the same
+   ``Engine`` wave twice more with equal token lists and no counted kernel
+   launched, with prefill and decode-step times (CUDA events), tokens/s,
+   ``decode_bytes_per_token`` and the rate it implies, and a profiler
+   split of one decode step (device time, casts); (e) layer 0's FFN gate
+   weight (3072 x 1024) pruned to 25 % in (8, 128) blocks as a
+   ``SparseLinear.from_dense(fmt="auto")`` on the card, as the reference's
+   ``examples/serve_sparse.py`` does: at B = 4 its kernel (BELL, kernel 6;
+   or SELL, kernel 5) once a call and nothing else, against dense
+   ``x @ W.T`` and its plain version; (f) every other architecture's
+   ``reduced`` config on the card: the prefill / decode consistency of (b),
+   one bf16 ``Engine`` wave for each token-input arch, and ``dropped_frac``
+   of the MoE archs' first MoE layer.
 
 Phase 7 ends with the measured warm path: every timed candidate of its
 seven matrices recorded into a ``core.tunedb.TuneDB`` (keyed by signature,
@@ -130,7 +151,7 @@ tuning=db)``, to the measured fastest format; ``fit_efficiency_from_db`` is
 logged beside the committed ``h100`` table.
 
 It prints a ``kernels`` JSON line (with each kernel's launches on the
-serving and the distributed paths) before the last line and ends with
+serving, the distributed and the LM paths) before the last line and ends with
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
 exits non-zero; without CUDA, or without the repository beside it, it
 prints no result and exits non-zero.
@@ -281,6 +302,264 @@ def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
 
+
+
+#: the architecture phase 14 serves at full width
+LM_ARCH = "qwen3-0.6b"
+
+
+def lm_phase(torch, dev, smi: str, record, compare) -> dict:
+    """Phase 14, the LM serving path at ``LM_ARCH``'s full width (the module
+    docstring lists its checks).  The reference's LM path reaches no
+    ``pallas_call`` (attention in plain jnp, expert GEMMs as einsums), so the
+    model runs on torch ops; the kernel on this path is the pruned FFN
+    weight's (14e), as ``examples/serve_sparse.py`` drives it.  ``record``
+    and ``compare`` are main's: a kernel row's fields, and a check of a
+    kernel against its plain version."""
+    from repro_torch.configs import reduced as lm_reduced
+    from repro_torch.kernels import cuda_build as CB
+    from repro_torch.launch import serve as LAUNCH
+    from repro_torch.models import moe as LM_MOE
+    from repro_torch.models import transformer as LMT
+    from repro_torch.models import whisper as LMW
+    from repro_torch.models.layers import apply_embed, apply_rmsnorm
+    from repro_torch.models.registry import Model as LMModel
+    from repro_torch.models.registry import get_config as lm_config
+    from repro_torch.models.sparse import SparseLinear, advise_weight_format, magnitude_prune
+    from repro_torch.serve.engine import Engine, GenerationConfig
+    from repro_torch.utils.hw import H100
+    from repro_torch.utils.tree import param_bytes, param_count
+
+    t14 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = torch.float32
+    lm = {}
+
+
+    def wall_ms(fn, reps: int = 10) -> float:
+        """Median of CUDA-event times around ``reps`` calls, each waited for:
+        what a caller that needs the result waits, host work included."""
+        fn()
+        ts = []
+        for _ in range(reps):
+            s_, e_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s_.record()
+            fn()
+            e_.record()
+            e_.synchronize()
+            ts.append(s_.elapsed_time(e_))
+        return float(np.median(ts))
+
+    def consistency(model_, mod_, B=2, S=16, seed=14):
+        """(prefill, decode) rel errors against lm_forward at S - 1 and S."""
+        cfg_ = model_.cfg
+        rng_ = np.random.default_rng(seed)
+        toks = torch.from_numpy(rng_.integers(0, cfg_.vocab, (B, S + 1))).to(dev)
+        emb = torch.from_numpy(rng_.standard_normal((B, S + 1, cfg_.d_model),
+                                                    dtype=np.float32)).to(dev)
+        cache_ = model_.init_cache(B, S + 4, device=dev)
+        with torch.no_grad():
+            if cfg_.family == "encdec":
+                full_ = LMW.decode(mod_, cfg_, toks, LMW.encode(mod_, cfg_, emb))[0]
+                pre_, cache_ = model_.prefill(mod_, {"enc_embeds": emb, "tokens": toks[:, :S]},
+                                              cache_)
+                nxt = toks[:, S]
+            elif cfg_.input_mode == "embeds":
+                full_ = LMT.lm_forward(mod_, cfg_, emb)[0]
+                pre_, cache_ = model_.prefill(mod_, {"embeds": emb[:, :S]}, cache_)
+                nxt = emb[:, S]
+            else:
+                full_ = LMT.lm_forward(mod_, cfg_, toks)[0]
+                pre_, cache_ = model_.prefill(mod_, {"tokens": toks[:, :S]}, cache_)
+                nxt = toks[:, S]
+            dec_, _ = model_.decode_step(mod_, cache_, nxt, S)
+        scale = float(full_.abs().max())
+        return (float((pre_ - full_[:, S - 1]).abs().max()) / scale,
+                float((dec_ - full_[:, S]).abs().max()) / scale, full_, toks)
+
+    # 14a. the parameters, initialized on the card from a seeded generator
+    arch = LM_ARCH
+    qcfg = lm_config(arch)
+    qmodel = LMModel(qcfg)
+    qmod = qmodel.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_par = param_count(qmod)
+    check(n_par == qmodel.total_params(), f"{arch}: {n_par} parameters, "
+          f"total_params() {qmodel.total_params()}")
+    lm["arch"], lm["params"], lm["param_bytes"] = arch, n_par, param_bytes(qmod)
+    lm["card_mem_in_use_bytes"] = torch.cuda.memory_allocated()
+    log(f"[lm] {arch}: {qcfg.n_layers} layers, d {qcfg.d_model}, heads "
+        f"{qcfg.n_heads} / {qcfg.n_kv_heads} x {qcfg.head_dim}, d_ff {qcfg.d_ff}, vocab "
+        f"{qcfg.vocab}: {n_par:,} parameters (= total_params()), "
+        f"{lm['param_bytes'] / 1e9:.3f} GB f32; card memory in use "
+        f"{lm['card_mem_in_use_bytes'] / 1e9:.3f} GB")
+
+    # 14b. prefill / decode consistency at f32 compute
+    q32 = LMModel(dataclasses.replace(qcfg, compute_dtype=f32, cache_dtype=f32))
+    e_pre, e_dec, full32, toks32 = consistency(q32, qmod)
+    check(e_pre < 1e-4 and e_dec < 1e-4, f"{arch}: prefill {e_pre:.2e} / decode "
+          f"{e_dec:.2e} from lm_forward (bound 1e-4 of max|logits|)")
+
+    # 14c. the same parameters on the host, through the port's CPU path
+    t0 = time.perf_counter()
+    host_mod = q32.build("cpu")
+    host_mod.load_state_dict(qmod.state_dict())
+    with torch.no_grad():
+        host = LMT.lm_forward(host_mod, q32.cfg, toks32.cpu())[0]
+    _, e_host = rel_err(torch, full32.cpu(), host)
+    check(e_host <= 1e-4, f"{arch}: card logits {e_host:.2e} from the host's "
+                          "(bound 1e-4 relative, f32 compute)")
+    lm.update(prefill_rel_err=e_pre, decode_rel_err=e_dec, card_vs_host_rel_err=e_host,
+              host_s=time.perf_counter() - t0)
+    log(f"[lm] f32 compute, B=2 S=16: prefill {e_pre:.2e}, decode {e_dec:.2e} of "
+        f"max|logits| from lm_forward; card vs host {e_host:.2e} relative "
+        f"({lm['host_s']:.1f} s of host forward)")
+    # layer 0's FFN gate (d_ff, d_model), for 14e: the parameters 14d serves
+    w_gate = qmod.units[0].mlp.wi_gate.detach().T.contiguous().cpu().numpy()
+    del host_mod, host, full32, qmod
+    torch.cuda.empty_cache()
+
+    # 14d. serving through the entry point a user calls
+    CB.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = LAUNCH.main(["--arch", arch, "--requests", "4"])
+    check(torch.equal(
+        served["engine"].params.units[0].mlp.wi_gate.detach().T.cpu(),
+        torch.from_numpy(w_gate)), "launch.serve drew other parameters than 14a")
+    lm["serve_main_s"] = time.perf_counter() - t0
+    eng, prompts, gcfg = served["engine"], served["prompts"], served["gen_cfg"]
+    waves, wave_s = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        waves.append(eng.generate(prompts, gcfg))
+        wave_s.append(time.perf_counter() - t0)
+    check(waves[0] == waves[1] == served["outs"], f"{arch}: the same Engine wave "
+          "gave other tokens")
+    check(all(len(o) == gcfg.max_new_tokens for o in waves[0]), "a request stopped early")
+    check(sum(CB.launch_counts().values()) == 0, f"the dense LM path launched counted "
+          f"kernels: {CB.launch_counts()}")
+    ptoks = torch.as_tensor(prompts, device=dev)
+    plen = ptoks.shape[1]
+
+    def prefill_call():
+        return eng.model.prefill(eng.params, {"tokens": ptoks}, eng.cache)
+
+    lg0, _ = prefill_call()
+    tok0 = lg0.argmax(-1)
+
+    def decode_call():
+        return eng.model.decode_step(eng.params, eng.cache, tok0, plen)
+
+    pre_ms, dec_ms = wall_ms(prefill_call), wall_ms(decode_call, reps=20)
+    n_tok = sum(len(o) for o in waves[0])
+    bpt = eng.decode_bytes_per_token()
+    # one decode step's device time by kernel: the casts beside the rest
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tr:
+        for _ in range(5):
+            decode_call()
+        torch.cuda.synchronize()
+    dev_us, n_ev = {}, 0
+    for ev in tr.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us[ev.name] = dev_us.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 5
+            n_ev += 1
+    check(n_ev > 0, "torch.profiler traced no device time in the decode step")
+    cast_us = sum(t for k, t in dev_us.items() if "copy" in k.lower())
+    prof = {"device_ms": sum(dev_us.values()) / 1e3, "cast_copy_ms": cast_us / 1e3,
+            "kernels_per_step": n_ev / 5,
+            "top": sorted(((round(t / 1e3, 4), k[:80]) for k, t in dev_us.items()),
+                          reverse=True)[:6]}
+    lm.update(tokens=waves[0], prefill_ms=pre_ms, decode_step_ms=dec_ms,
+              wave_s=wave_s, tok_s=[n_tok / t for t in wave_s],
+              decode_bytes_per_token=bpt, implied_gb_s=bpt / (dec_ms * 1e-3) / 1e9,
+              decode_profile=prof)
+    log(f"[lm] launch.serve {arch} --requests 4 (prompt {plen}, "
+        f"{gcfg.max_new_tokens} new, max_len {eng.max_len}, greedy, bf16): {n_tok} tokens, "
+        f"two more waves equal; prefill {pre_ms:.3f} ms, decode step {dec_ms:.3f} ms (CUDA "
+        f"events, median), waves {', '.join(f'{n_tok / t:.1f}' for t in wave_s)} tok/s; "
+        f"decode_bytes_per_token {bpt / 1e9:.4f} GB -> {lm['implied_gb_s']:.1f} GB/s at the "
+        f"decode step's time ({100 * lm['implied_gb_s'] / 3350:.1f} % of 3.35 TB/s); "
+        f"profiled step: {prof['device_ms']:.3f} ms of device time in "
+        f"{prof['kernels_per_step']:.0f} kernels, casts / copies "
+        f"{prof['cast_copy_ms']:.3f} ms; card: {smi}")
+    for t_ms, name in prof["top"]:
+        log(f"[lm]   {t_ms:.4f} ms  {name}")
+
+    # 14e. the pruned FFN gate weight of layer 0 as a SparseLinear
+    w_sp = magnitude_prune(w_gate, 0.25, structured=(8, 128))
+    advised_lm = advise_weight_format(w_sp, (8, 128))
+    lin_lm = SparseLinear.from_dense(w_sp, fmt="auto", device=dev)
+    kname = "bell_spmm" if lin_lm.fmt == "bsr" else "sell_spmm"
+    x_lm = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (4, w_sp.shape[1]), dtype=np.float32)).to(dev)
+    W_lm = torch.from_numpy(w_sp).to(dev)
+    CB.reset_launch_counts()
+    ys_lm = [lin_lm(x_lm) for _ in range(3)]
+    torch.cuda.synchronize()
+    counts_lm = CB.launch_counts()
+    others = {k: v for k, v in counts_lm.items()
+              if v and k != kname and not k.startswith(kname + "_")}
+    check(counts_lm[kname] == 3 and not others, f"SparseLinear on the LM weight: {kname} "
+          f"launched {counts_lm[kname]} times for 3 calls; others {others}")
+    record(kname, launches_lm=counts_lm[kname])
+    plain_lm = SparseLinear.from_dense(w_sp, fmt=lin_lm.fmt, backend="torch", device=dev)
+    err_lm = compare(kname, f"LM FFN gate {tuple(w_sp.shape)} B=4 vs plain", ys_lm[0],
+                     plain_lm(x_lm))
+    compare(kname, f"LM FFN gate {tuple(w_sp.shape)} B=4 vs dense", ys_lm[0], x_lm @ W_lm.T)
+    check(all(torch.equal(ys_lm[0], y) for y in ys_lm[1:]), "SparseLinear: calls differ")
+    sb = lin_lm.streamed_bytes()
+    lm["sparse_ffn"] = {
+        "shape": list(w_sp.shape), "advised": advised_lm, "fmt": lin_lm.fmt, "kernel": kname,
+        "launches": counts_lm[kname], "calls": 3, "max_abs_err_vs_plain": err_lm,
+        "layer_ms": time_ms(torch, lambda: lin_lm(x_lm)),
+        "plain_ms": time_ms(torch, lambda: plain_lm(x_lm), reps=5),
+        "dense_ms": time_ms(torch, lambda: x_lm @ W_lm.T), "streamed_bytes": sb,
+        "bound_ms": sb / H100.hbm_bytes_per_s * 1e3}
+    sf = lm["sparse_ffn"]
+    log(f"[lm] sparse FFN gate {tuple(w_sp.shape)} at 25 % in (8, 128) blocks: advised "
+        f"{advised_lm}, stored {lin_lm.fmt}; {kname} once a call (3 of 3, nothing else); "
+        f"B=4: layer {sf['layer_ms']:.4f} ms, plain {sf['plain_ms']:.4f}, dense x @ W.T "
+        f"{sf['dense_ms']:.4f}; streamed_bytes {sb / 1e6:.3f} MB (bound "
+        f"{sf['bound_ms']:.4f} ms at 3.35 TB/s)")
+    del eng, served, lin_lm, plain_lm, W_lm
+    torch.cuda.empty_cache()
+
+    # 14f. every other architecture's reduced config on the card
+    lm["archs"] = {}
+    for name in ("gemma-7b", "minicpm-2b", "glm4-9b", "pixtral-12b", "moonshot-v1-16b-a3b",
+                 "deepseek-v2-lite-16b", "mamba2-2.7b", "whisper-tiny",
+                 "jamba-1.5-large-398b"):
+        rcfg_b = lm_reduced(lm_config(name))
+        rm32 = LMModel(dataclasses.replace(rcfg_b, compute_dtype=f32, cache_dtype=f32))
+        rmod = rm32.init(torch.Generator(device=dev).manual_seed(1), device=dev)
+        a_pre, a_dec, _, atoks = consistency(rm32, rmod)
+        check(a_pre < 1e-4 and a_dec < 1e-4, f"{name} (reduced): prefill {a_pre:.2e} / "
+              f"decode {a_dec:.2e} from the forward (bound 1e-4)")
+        row = {"prefill_rel_err": a_pre, "decode_rel_err": a_dec}
+        if rcfg_b.family != "encdec" and rcfg_b.input_mode == "tokens":
+            eng_b = Engine(LMModel(rcfg_b), rmod, batch_size=2, max_len=48, device=dev)
+            outs_b = eng_b.generate(np.random.default_rng(16).integers(
+                0, rcfg_b.vocab, (2, 8)), GenerationConfig(max_new_tokens=6))
+            check(all(len(o) == 6 and all(0 <= t < rcfg_b.vocab for t in o) for o in outs_b),
+                  f"{name}: bf16 Engine wave gave {outs_b}")
+            row["bf16_tokens"] = outs_b
+        if rcfg_b.moe is not None:
+            unit = rmod.units[0].l1 if rcfg_b.family == "hybrid" else rmod.units[0]
+            with torch.no_grad():
+                xm = apply_embed(rmod.embed, atoks, f32)
+                _, aux_m = LM_MOE.moe_apply(unit.moe, apply_rmsnorm(unit.ln_ffn, xm),
+                                            rcfg_b.moe, compute_dtype=f32)
+            row["dropped_frac"] = float(aux_m["dropped_frac"])
+        lm["archs"][name] = row
+        log(f"[lm] {name} (reduced, {rcfg_b.family}): prefill {a_pre:.2e}, decode "
+            f"{a_dec:.2e}" + (f"; bf16 wave {row['bf16_tokens']}" if "bf16_tokens" in row
+                              else "") + (f"; dropped_frac {row['dropped_frac']:.4f}"
+                                          if "dropped_frac" in row else ""))
+        del rmod
+    lm["phase_s"] = time.perf_counter() - t14
+    log(f"[lm] phase 14 took {lm['phase_s']:.1f} s")
+    return lm
 
 
 def main(argv=None) -> int:
@@ -2110,6 +2389,9 @@ def main(argv=None) -> int:
         f"{out['distributed']['host_s']:.1f} s")
     del srv13, s13a, s13b, dplans, plan13, plan_l
 
+    # --- 14. the LM serving path: Qwen3-0.6B at full width -----------------------
+    out["lm"] = lm_phase(torch, dev, smi, record, compare)
+
     # --- report -----------------------------------------------------------------
     names = ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv", "sell_spmm", "stream_triad",
              "gather_scp", "bell_spmm", "grouped_gemm", "grouped_gemm_wgmma")
@@ -2118,9 +2400,11 @@ def main(argv=None) -> int:
     # launches_serving: phase 12's count (0 for a kernel off the serving path);
     # launches_distributed: phase 13's (kernel 1 in its Lanczos, kernel 5 in its
     # served flush; 0 for a kernel off the distributed path)
+    # launches_lm: phase 14's (the pruned FFN weight's kernel; 0 elsewhere)
     kernels = [{**{k: rows[n].get(k) for k in keys},
                 "launches_serving": rows[n].get("launches_serving", 0),
-                "launches_distributed": rows[n].get("launches_distributed", 0)}
+                "launches_distributed": rows[n].get("launches_distributed", 0),
+                "launches_lm": rows[n].get("launches_lm", 0)}
                for n in names]
     for kr in kernels:
         check(all(kr[k] is not None for k in keys if k != "library_ms")
@@ -2132,6 +2416,9 @@ def main(argv=None) -> int:
               f"{kr['name']} was never launched on the serving path")
         check(kr["launches_distributed"] > 0 or kr["name"] not in ("sell_spmm", "sell_spmv"),
               f"{kr['name']} was never launched on the distributed path")
+    check(sum(kr["launches_lm"] for kr in kernels
+              if kr["name"] in ("bell_spmm", "sell_spmm")) > 0,
+          "no sparse-weight kernel was launched on the LM path")
     out["kernels"] = [rows[n] for n in names]
     for kr in out["kernels"]:
         kr["bound_ms_at_measured_bw"] = kr["bound_ms"] * H100.hbm_bytes_per_s / \

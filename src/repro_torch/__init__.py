@@ -3,9 +3,11 @@
 The JAX package ``repro`` is the reference; this package re-implements its
 main path -- Holstein-Hubbard matrix, storage formats, kernel registry, SpMV
 plan, Lanczos -- the performance model, the sparse-weight layer
-(``models.sparse.SparseLinear``) and the grouped MoE expert GEMM
-(``kernels.ops.grouped_gemm``) in PyTorch, with hand-written CUDA kernels
-for Hopper in ``csrc/``.  It imports neither ``jax`` nor ``repro``.
+(``models.sparse.SparseLinear``), the grouped MoE expert GEMM
+(``kernels.ops.grouped_gemm``), the serving and distributed layers and the
+LM stack with its token engine (``models.registry``, ``serve.Engine``,
+``launch.serve``) in PyTorch, with hand-written CUDA kernels for Hopper in
+``csrc/``.  It imports neither ``jax`` nor ``repro``.
 
 Entry points run on the card: a plan or a solve asked for no ``device``
 raises when CUDA is absent instead of falling back to the CPU.  Pass

@@ -173,3 +173,22 @@ def ground_state_energy(apply_A, n: int, m: int = 96, **kw) -> float:
 def spectral_extent(apply_A, n: int, m: int = 32, **kw) -> tuple[float, float]:
     r = lanczos(apply_A, n, m=m, **kw)
     return float(r.eigenvalues[0]), float(r.eigenvalues[-1])
+
+
+def power_iteration(apply_A, n: int, iters: int = 200, seed: int = 0,
+                    dtype=torch.float64, device=None) -> float:
+    """|lambda|_max via power iteration -- an independent cross-check oracle.
+
+    The start vector comes from numpy (``seed``), as ``lanczos``'s default
+    does, so it is not the reference's ``jax.random`` vector.  The vectors
+    live on the plan's device (else ``device``, default the card)."""
+    apply_A = as_apply(apply_A, device=device)
+    dev = getattr(apply_A, "device", None)
+    dev = default_device(device) if dev is None else dev
+    v = torch.as_tensor(np.random.default_rng(seed).standard_normal(n), dtype=dtype,
+                        device=dev)
+    v = v / torch.linalg.vector_norm(v)
+    for _ in range(iters):
+        w = apply_A(v).to(dtype)
+        v = w / torch.linalg.vector_norm(w)
+    return float(torch.dot(v, apply_A(v).to(dtype)))

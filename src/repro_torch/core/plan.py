@@ -268,6 +268,9 @@ def _compile(matrix, fmt: str, backend: str, device: torch.device,
     return SpMVPlan(matrix, report, ck_v.fn, ck_m.fn, device)
 
 
+#: alias of ``SpMVPlan.compile`` for functional call sites
+compile_plan = SpMVPlan.compile
+
 #: the formats ``plan_all_formats`` plans by default (bsr joins them when
 #: the shape tiles by its block)
 ALL_FORMATS = ("csr", "ell", "jds", "sell", "hybrid")

@@ -3,8 +3,9 @@
 ``from_reference_arrays(kind, arrays, meta)`` builds a port container from
 the numpy arrays of a container of the same kind and its scalar metadata,
 so both packages can be fed the identical matrix; ``sparse_linear_from_arrays``
-builds a ``SparseLinear`` over such a container, and ``expert_weights``
-takes MoE expert weights ``W (E, D, F)`` over.  It reads arrays only and
+builds a ``SparseLinear`` over such a container, ``expert_weights``
+takes MoE expert weights ``W (E, D, F)`` over, and ``lm_state_from_reference``
+turns an LM's parameter tree into the port module's state dict.  It reads arrays only and
 imports nothing of the reference package; bf16 and fp8 arrays (whose numpy
 dtypes come from an extension package) are taken over by their raw bits.
 """
@@ -91,3 +92,36 @@ def expert_weights(W, device=None) -> torch.Tensor:
     if t.dim() != 3:
         raise ValueError(f"expert weights must be (E, D, F), got shape {tuple(t.shape)}")
     return t.to(default_device(device))
+
+
+def lm_state_from_reference(cfg, tree) -> dict:
+    """The ``state_dict`` of the port's module (``models.registry.Model(cfg)``)
+    holding the parameters of the reference's tree ``tree`` (nested dicts
+    and lists of arrays).  Each stacked leaf of ``units`` / ``enc_units`` /
+    ``dec_units`` is split along axis 0, one entry a unit module; values
+    pass bit for bit (``as_tensor``)."""
+    from .models.transformer import STACKED
+
+    n_stacked = {"units": cfg.n_units, "enc_units": cfg.n_enc_layers,
+                 "dec_units": cfg.n_layers}
+    state = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + [str(k)])
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + [str(i)])
+        elif path[0] in STACKED:
+            a = np.asarray(node)
+            if a.shape[0] != n_stacked[path[0]]:
+                raise ValueError(f"{'/'.join(path)}: {a.shape[0]} stacked entries, "
+                                 f"the config has {n_stacked[path[0]]}")
+            for i in range(a.shape[0]):
+                state[".".join([path[0], str(i)] + path[1:])] = as_tensor(a[i])
+        else:
+            state[".".join(path)] = as_tensor(node)
+
+    walk(tree, [])
+    return state

@@ -20,6 +20,8 @@ pick on the container.
 """
 from __future__ import annotations
 
+import argparse
+import sys
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -188,6 +190,13 @@ def get(format: str, op: str, backend: str) -> KernelEntry:
                        f"registered backends: {have}") from None
 
 
+def capabilities(matrix, format: str, op: str,
+                 ctx: KernelContext | None = None) -> dict:
+    """{backend: Capability} over every entry registered for (format, op)."""
+    ctx = ctx or KernelContext()
+    return {e.backend: e.probe(matrix, ctx) for e in entries(format, op)}
+
+
 def build(matrix, format: str, op: str, backend: str,
           ctx: KernelContext | None = None) -> CompiledKernel:
     """Build an explicit entry; :class:`BackendUnavailable` when its probe
@@ -237,3 +246,104 @@ def select_backend(matrix, format: str, op: str,
                                  f"on {ctx.device}")
     memo[memo_key] = choice
     return choice
+
+
+def build_best(matrix, format: str, op: str,
+               ctx: KernelContext | None = None) -> CompiledKernel:
+    """``select_backend`` + ``build`` in one call."""
+    ctx = ctx or KernelContext()
+    backend, _ = select_backend(matrix, format, op, ctx)
+    return build(matrix, format, op, backend, ctx)
+
+
+# ---------------------------------------------------------------------------
+# introspection / CLI
+# ---------------------------------------------------------------------------
+
+
+def _platform_device(device=None) -> torch.device:
+    """The device the table's probes answer for: ``device``, else the card
+    when this process has one, else the host (a listing runs nothing)."""
+    if device is not None:
+        return torch.device(device)
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def _cost_name(hook) -> str:
+    """``roofline`` for a closure out of ``default_cost``; else the name of
+    the function that made or is the hook (``const_cost`` for the slabs)."""
+    name = getattr(hook, "__qualname__", "cost").split(".<locals>")[0]
+    return "roofline" if name == "default_cost" else name.lstrip("_")
+
+
+def table_rows(device=None) -> list[dict]:
+    """One row per registered entry: key, auto flag, the platform probe on
+    ``device`` (default: this process's platform, see ``_platform_device``)
+    and docs.  Every entry takes every value dtype of
+    ``core.formats.VALUE_DTYPES``."""
+    from ..core.formats import VALUE_DTYPES
+
+    _ensure_populated()
+    ctx = KernelContext(device=_platform_device(device))
+    rows = []
+    for e in _TABLE.values():
+        cap = e.probe(None, ctx)
+        rows.append({
+            "format": e.format, "op": e.op, "backend": e.backend,
+            "auto": e.auto, "available": cap.ok, "reason": cap.reason,
+            "description": e.description, "value_dtypes": tuple(VALUE_DTYPES),
+            "cost": _cost_name(e.cost),
+        })
+    return rows
+
+
+def format_table(markdown: bool = False, device=None) -> str:
+    rows = table_rows(device)
+    head = ("format", "op", "backend", "auto", "available", "dtypes", "cost",
+            "description")
+    data = [[r["format"], r["op"], r["backend"], "yes" if r["auto"] else "no",
+             "yes" if r["available"] else f"no ({r['reason']})",
+             ",".join(r["value_dtypes"]), r["cost"], r["description"]] for r in rows]
+    widths = [max([len(h)] + [len(str(row[i])) for row in data])
+              for i, h in enumerate(head)]
+    sep = " | " if markdown else "  "
+    lines = [sep.join(h.ljust(w) for h, w in zip(head, widths))]
+    if markdown:
+        lines[0] = "| " + lines[0] + " |"
+        lines.append("| " + " | ".join("-" * w for w in widths) + " |")
+    for row in data:
+        line = sep.join(str(c).ljust(w) for c, w in zip(row, widths))
+        lines.append(("| " + line + " |") if markdown else line)
+    return "\n".join(lines)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Inspect the port's kernel registry")
+    ap.add_argument("--list", action="store_true",
+                    help="print the registered (format, op, backend) table")
+    ap.add_argument("--markdown", action="store_true",
+                    help="emit a GitHub-flavored markdown table")
+    ap.add_argument("--device", default=None,
+                    help="device the probes answer for (default: the card if "
+                         "present, else the host)")
+    args = ap.parse_args(argv)
+    if not (args.list or args.markdown):
+        ap.print_help()
+        return 0
+    dev = _platform_device(args.device)
+    if args.markdown:
+        rows = table_rows(dev)
+        print(f"### Kernel registry -- {len(rows)} entries "
+              f"({len({r['backend'] for r in rows})} backends) on `{dev}`\n")
+    print(format_table(markdown=args.markdown, device=dev))
+    return 0
+
+
+if __name__ == "__main__":
+    # ``python -m repro_torch.kernels.registry`` runs this file as __main__
+    # while the package import created the canonical module, where every
+    # kernel registered: delegate to that instance's table, not the empty
+    # one runpy would otherwise see.
+    from repro_torch.kernels import registry as _canonical
+
+    sys.exit(_canonical.main(sys.argv[1:]))

@@ -1,30 +1,140 @@
-"""Micro-batched SpMV serving: ``BatchingSpMVServer``.
+"""Serving engines: token decode waves and micro-batched SpMV operators.
 
-Port of the SpMV half of ``repro.serve.engine``.  Concurrent ``y = A @ x``
-requests against a registered matrix are coalesced into a single
-``plan.spmm(X)``, so the matrix is streamed once per batch instead of once
-per request (``serve.batching`` holds the queue machinery,
-``perfmodel.select_batch_width`` the width policy).  ``SparseOperatorServer``
-remains as the direct-call compatibility name.
+Two serving surfaces share this module because they are the same regime at
+two granularities:
 
-``register_distributed`` serves a ``DistributedSpMVPlan`` over a mesh the
-same way: a flush is one distributed ``plan.spmm``.  Not here yet: the
-token ``Engine`` / ``GenerationConfig``, which arrive with the LM stack
-(``models/registry.py``, ``serve/kv_cache.py``).
+* ``Engine`` -- prefill, then decode waves over a fixed slot batch.  Decode
+  is the paper's regime: every step streams all active weights (and the KV
+  cache) against one activation vector per slot, a bandwidth-bound
+  matrix-vector pipeline.  Requests in a wave share positions (prompts
+  padded to the wave's max).  The KV cache is allocated once on the device
+  and written in place at each step's position.
+
+* ``BatchingSpMVServer`` -- the operator-level analogue: concurrent
+  ``y = A @ x`` requests against a registered matrix are coalesced into a
+  single ``plan.spmm(X)``, so the matrix is streamed once per batch instead
+  of once per request (``serve.batching`` holds the queue machinery,
+  ``perfmodel.select_batch_width`` the width policy).
+  ``SparseOperatorServer`` remains as the direct-call compatibility name.
+  ``register_distributed`` serves a ``DistributedSpMVPlan`` over a mesh the
+  same way: a flush is one distributed ``plan.spmm``.
 """
 from __future__ import annotations
 
 import time
+from collections.abc import Mapping
+from dataclasses import dataclass
 
+import numpy as np
 import torch
+from torch import nn
 
 from ..core import perfmodel as PM
 from ..core.plan import _LABEL_STREAM, SpMVPlan
 from ..core.planconfig import coerce_config
 from ..core.validate import POLICIES
+from ..models.registry import Model
 from ..utils.hw import H100, default_device
+from ..utils.tree import leaves, param_bytes
 from .batching import BatchPolicy, OperatorQueue, SpMVFuture
+from .kv_cache import SlotManager, cache_bytes, zeros_like_shapes
 from .resilience import ResiliencePolicy, degradation_ladder
+
+
+@dataclass
+class GenerationConfig:
+    """Sampling knobs for one ``Engine.generate`` wave."""
+
+    max_new_tokens: int = 32
+    temperature: float = 0.0         # 0 => greedy
+    eos_id: int = -1                 # -1 => never stops early
+    seed: int = 0
+
+
+class Engine:
+    """Token serving engine: prefill, then decode steps over a fixed slot
+    batch, on ``device`` (default the card; "cpu" runs on the host).
+
+    ``params`` is the model's module (moved to ``device``) or a state dict
+    loaded into a module the model builds there.  Greedy sampling is
+    ``argmax``; ``temperature > 0`` draws with ``torch.multinomial`` from a
+    generator seeded with ``GenerationConfig.seed`` (not bitwise
+    ``jax.random.categorical``).  The step's tokens reach the host once a
+    step."""
+
+    def __init__(self, model: Model, params, *, batch_size: int, max_len: int,
+                 device=None):
+        self.model = model
+        self.device = default_device(device)
+        if isinstance(params, Mapping):
+            module = model.build(self.device)
+            module.load_state_dict(params)
+        elif isinstance(params, nn.Module):
+            module = params.to(self.device)
+        else:
+            raise TypeError(f"params must be the model's nn.Module or its state dict, "
+                            f"got {type(params).__name__}")
+        self.params = module
+        self.batch_size = batch_size
+        self.max_len = max_len
+        self.slots = SlotManager(batch_size, max_len)
+        self.cache = zeros_like_shapes(model.cache_shape(batch_size, max_len), self.device)
+
+    def _sample(self, logits: torch.Tensor, cfg: GenerationConfig, gen) -> torch.Tensor:
+        if cfg.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        probs = torch.softmax(logits.float() / cfg.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0]
+
+    def generate(self, prompts: np.ndarray, cfg: GenerationConfig = GenerationConfig()):
+        """Run one synchronized prefill + decode wave.
+
+        Args:
+            prompts: (n, prompt_len) integer token ids, n <= batch_size;
+                prompts share positions (pad to the wave's max upstream).
+            cfg: sampling configuration for the wave.
+
+        Returns:
+            A list of n generated-token lists (ints), one per prompt.
+        """
+        n, plen = prompts.shape
+        if n > self.batch_size:
+            raise ValueError(f"{n} prompts for {self.batch_size} slots")
+        B = self.batch_size
+        toks = np.zeros((B, plen), np.int64)
+        toks[:n] = prompts
+        for r in range(n):
+            self.slots.admit(r, plen)
+        for t in leaves(self.cache):   # SSM states carry into a prefill
+            t.zero_()
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        logits, cache = self.model.prefill(
+            self.params, {"tokens": torch.as_tensor(toks, device=self.device)}, self.cache)
+        pos = plen
+        outs: list[list[int]] = [[] for _ in range(B)]
+        tok = self._sample(logits, cfg, gen)
+        host = tok.tolist()
+        for i in range(n):
+            self.slots.record_token(i, host[i], cfg.eos_id, cfg.max_new_tokens)
+            outs[i].append(host[i])
+        while pos < self.max_len - 1 and self.slots.active_mask()[:n].any():
+            logits, cache = self.model.decode_step(self.params, cache, tok, pos)
+            tok = self._sample(logits, cfg, gen)
+            pos += 1
+            host = tok.tolist()
+            active = self.slots.active_mask()
+            for i in range(n):
+                if active[i]:
+                    self.slots.record_token(i, host[i], cfg.eos_id, cfg.max_new_tokens)
+                    outs[i].append(host[i])
+        return [outs[i] for i in range(n)]
+
+    # --- accounting for the roofline discussion ---
+    def decode_bytes_per_token(self) -> float:
+        """Weights + cache bytes streamed per generated token (model-level)."""
+        w = param_bytes(self.model.param_shapes())
+        c = cache_bytes(self.model.cache_shape(self.batch_size, self.max_len))
+        return w + c / max(1, self.batch_size)
 
 
 class BatchingSpMVServer:

@@ -43,6 +43,16 @@ H100 = ChipSpec(
     measured=False,
 )
 
+# The paper's three x86 test systems, kept for the microbenchmark model's
+# fidelity: the reference's peak serves as both the f32 and the f64 rate,
+# and the memory rate is the paper's measured STREAM Triad (not a data
+# sheet, and not measured by this repository).
+WOODCREST = ChipSpec("woodcrest", 2 * 4 * 3.0e9, 2 * 4 * 3.0e9, 6.5e9)
+SHANGHAI = ChipSpec("shanghai", 8 * 4 * 2.4e9, 8 * 4 * 2.4e9, 20e9)
+NEHALEM = ChipSpec("nehalem", 8 * 4 * 2.66e9, 8 * 4 * 2.66e9, 35e9)
+
+CHIPS = {c.name: c for c in (H100, WOODCREST, SHANGHAI, NEHALEM)}
+
 
 def default_device(device=None) -> torch.device:
     """The device an entry point runs on.

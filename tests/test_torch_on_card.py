@@ -931,3 +931,52 @@ def test_cuda_distributed_plan_launch_counts_on_the_card(cuda_device, variant):
     assert float((y - want).abs().max() / want.abs().max()) <= 1e-12
     assert float((Y - want_mm).abs().max() / want_mm.abs().max()) <= 1e-12
     assert torch.equal(plan(x), y) and y.device == cuda_device
+
+
+@pytest.mark.cuda
+def test_lm_engine_wave_at_full_width_on_the_card(cuda_device):
+    """Qwen3-0.6B at full width (bf16 compute) served through the Engine on
+    the card: one prefill and decode wave, the same tokens twice, no counted
+    kernel launched (the dense LM path runs on torch ops)."""
+    from repro_torch.models.registry import get
+    from repro_torch.serve.engine import Engine, GenerationConfig
+    model = get("qwen3-0.6b")
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0),
+                        device=cuda_device)
+    assert model.total_params() == 596_049_920
+    eng = Engine(model, params, batch_size=4, max_len=128, device=cuda_device)
+    prompts = np.random.default_rng(0).integers(0, model.cfg.vocab, (4, 16))
+    before = CB.launch_counts()
+    out1 = eng.generate(prompts, GenerationConfig(max_new_tokens=24))
+    out2 = eng.generate(prompts, GenerationConfig(max_new_tokens=24))
+    assert CB.launch_counts() == before
+    assert out1 == out2 and all(len(o) == 24 for o in out1)
+    assert all(0 <= t < model.cfg.vocab for o in out1 for t in o)
+
+
+@pytest.mark.cuda
+def test_lm_sparse_ffn_weight_launches_its_kernel_once_a_call(cuda_device):
+    """Layer 0's FFN gate of Qwen3-0.6B (3072 x 1024), pruned to 25 % in
+    (8, 128) blocks, as a SparseLinear on the card: its kernel (BELL for
+    bsr, SELL SpMM for sell) once a call and nothing else, against dense."""
+    from repro_torch.models.registry import get
+    from repro_torch.models.sparse import SparseLinear, magnitude_prune
+    model = get("qwen3-0.6b")
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0),
+                        device=cuda_device)
+    w = magnitude_prune(params.units[0].mlp.wi_gate.detach().T.contiguous().cpu().numpy(),
+                        0.25, structured=(8, 128))
+    lin = SparseLinear.from_dense(w, fmt="auto", device=cuda_device)
+    kernel = "bell_spmm" if lin.fmt == "bsr" else "sell_spmm"
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (4, 1024), dtype=np.float32)).to(cuda_device)
+    for _ in range(2):
+        before = CB.launch_counts()
+        y = lin(x)
+        torch.cuda.synchronize()
+        after = CB.launch_counts()
+        assert after[kernel] == before[kernel] + 1
+        assert {k for k in after if after[k] != before[k]} <= {
+            kernel, f"{kernel}_decode", f"{kernel}_wide"}
+    want = x @ torch.from_numpy(w).to(cuda_device).T
+    assert float((y - want).abs().max() / want.abs().max()) <= 1e-5
