@@ -140,7 +140,24 @@ repository configures:
    ``x @ W.T`` and its plain version; (f) every other architecture's
    ``reduced`` config on the card: the prefill / decode consistency of (b),
    one bf16 ``Engine`` wave for each token-input arch, and ``dropped_frac``
-   of the MoE archs' first MoE layer.
+   of the MoE archs' first MoE layer;
+15. the training path (``TRAIN_ARCH`` = Qwen3-0.6B): (a) for every
+   architecture's ``reduced`` config at f32 compute (TF32 off for this
+   check and after), one ``make_train_step`` step on the card against the
+   same step on the host from the same parameters and batch: loss and
+   grad_norm within 1e-5 relative, every grad leaf within 1e-4 of its
+   max|g| (one bf16 ulp, 2^-7, for jamba's bf16 leaves), the parameters
+   after the step within 2 * lr; (b) ``launch.train.main`` at full width
+   (remat "full", bf16 compute, f32 parameters and AdamW state; B = 8,
+   S = 128, 20 steps, lr 1e-3, warmup 2, a checkpoint every 10 steps under
+   ``build/train_ckpt``): every loss finite, the last below the first, no
+   counted kernel launched, the peak memory; (c) step 10's checkpoint
+   restored into a fresh module and opt state and saved again (the files
+   equal byte for byte; restore and save seconds, bytes), then steps 11-20
+   from it against the uninterrupted run's losses (1e-6 relative; whether
+   bitwise is reported); the checkpoints are deleted after; (d) the wall
+   ms a step, one profiled step's device ms and kernels, the optimizer
+   alone, tokens/s and the model TFLOP/s at 6 N tokens, beside the card.
 
 Phase 7 ends with the measured warm path: every timed candidate of its
 seven matrices recorded into a ``core.tunedb.TuneDB`` (keyed by signature,
@@ -151,7 +168,8 @@ tuning=db)``, to the measured fastest format; ``fit_efficiency_from_db`` is
 logged beside the committed ``h100`` table.
 
 It prints a ``kernels`` JSON line (with each kernel's launches on the
-serving, the distributed and the LM paths) before the last line and ends with
+serving, the distributed and the LM paths; the training path of phase 15
+launches none of them) before the last line and ends with
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
 exits non-zero; without CUDA, or without the repository beside it, it
 prints no result and exits non-zero.
@@ -560,6 +578,236 @@ def lm_phase(torch, dev, smi: str, record, compare) -> dict:
     lm["phase_s"] = time.perf_counter() - t14
     log(f"[lm] phase 14 took {lm['phase_s']:.1f} s")
     return lm
+
+
+#: the architecture phase 15 trains at full width
+TRAIN_ARCH = "qwen3-0.6b"
+#: phase 15b's run: batch, sequence, steps, peak learning rate (warmup 2)
+TRAIN_RUN = {"batch": 8, "seq": 128, "steps": 20, "lr": 1e-3}
+
+
+def _leaf_err(a, b) -> float:
+    """max|a - b| / max|b| of one leaf in f64 (the raw difference for an
+    all-zero leaf)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    scale = float(b.abs().max())
+    err = float((a - b).abs().max())
+    return err / scale if scale else err
+
+
+def train_phase(torch, dev, smi: str) -> dict:
+    """Phase 15, the training path: (a) one train step of every reduced
+    architecture on the card against the same step on the host; (b)
+    ``launch.train`` at ``TRAIN_ARCH``'s full width; (c) a checkpoint round
+    trip at full width; (d) the step's numbers (the module docstring lists
+    the checks).  The reference's training path reaches no ``pallas_call``
+    (plain-jnp layers, einsum experts, no custom gradients), so none of the
+    nine kernels runs here: the phase checks that none is launched."""
+    import filecmp
+    import math
+    import shutil
+
+    from repro_torch.configs import reduced as lm_reduced
+    from repro_torch.configs import smoke_batch
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.kernels import cuda_build as CB
+    from repro_torch.launch import train as LAUNCH_TRAIN
+    from repro_torch.models.registry import Model as LMModel
+    from repro_torch.models.registry import get_config as lm_config
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train import optimizer as OPT
+    from repro_torch.train import trainer as TR
+    from repro_torch.utils.tree import param_count
+
+    t15 = time.perf_counter()
+    tr = {}
+    # f32 products in f32 on both sides of (a): no TF32 on the card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 15a. one step of every reduced architecture, card against host
+    lr_a = 1e-2
+    ocfg_a = OPT.OptimizerConfig(lr=lr_a, warmup_steps=1, schedule="const")
+    tr["archs"] = {}
+    for name in ("gemma-7b", "qwen3-0.6b", "minicpm-2b", "glm4-9b", "pixtral-12b",
+                 "moonshot-v1-16b-a3b", "deepseek-v2-lite-16b", "mamba2-2.7b",
+                 "whisper-tiny", "jamba-1.5-large-398b"):
+        cfg = lm_reduced(lm_config(name), compute_dtype=torch.float32)
+        model = LMModel(cfg)
+        host = model.init(torch.Generator().manual_seed(2), device="cpu")
+        card = model.build(dev)
+        card.load_state_dict(host.state_dict())
+        hb = smoke_batch(cfg, torch.Generator().manual_seed(3))
+        cb = {k: v.to(dev) for k, v in hb.items()}
+        loss_h, _, g_h = TR.loss_and_grads(model, host, hb)
+        loss_c, _, g_c = TR.loss_and_grads(model, card, cb)
+        # bf16 leaves (jamba's parameters) round their grads to bf16: one ulp
+        g_err = max(_leaf_err(g_c[k], g_h[k]) / (2.0 ** -7 if g_h[k].dtype == torch.bfloat16
+                                                  else 1e-4) for k in g_h)
+        step = TR.make_train_step(model, ocfg_a)
+        _, _, m_h = step(host, OPT.init_opt_state(host), hb)
+        _, _, m_c = step(card, OPT.init_opt_state(card), cb)
+        e_loss = abs(float(m_c["loss"]) - float(m_h["loss"])) / abs(float(m_h["loss"]))
+        e_gn = abs(float(m_c["grad_norm"]) - float(m_h["grad_norm"])) / float(m_h["grad_norm"])
+        hp = dict(host.named_parameters())
+        p_err = max(float((p.detach().double().cpu() - hp[k].detach().double()).abs().max())
+                    for k, p in card.named_parameters())
+        check(e_loss <= 1e-5 and e_gn <= 1e-5 and g_err <= 1 and p_err <= 2 * lr_a,
+              f"{name} (reduced): card train step against the host's: loss {e_loss:.2e}, "
+              f"grad_norm {e_gn:.2e} (bounds 1e-5 relative), grads {g_err:.2e} of their "
+              f"bound, parameters {p_err:.2e} (bound 2 * lr = {2 * lr_a})")
+        tr["archs"][name] = {"loss_rel_err": e_loss, "grad_norm_rel_err": e_gn,
+                             "grad_err_of_bound": g_err, "param_abs_err": p_err,
+                             "loss": float(m_c["loss"])}
+        log(f"[train] {name} (reduced, f32, TF32 off): card step vs host: loss {e_loss:.2e}, "
+            f"grad_norm {e_gn:.2e}, grads {g_err:.2e} of 1e-4 of max|g|, parameters "
+            f"{p_err:.2e} (bound {2 * lr_a})")
+        del host, card
+
+    # 15b. launch.train at full width: remat "full", bf16 compute
+    arch = TRAIN_ARCH
+    qcfg = lm_config(arch)
+    check(qcfg.remat == "full" and qcfg.compute_dtype == torch.bfloat16,
+          f"{arch}: remat {qcfg.remat}, compute {qcfg.compute_dtype}")
+    ckdir = REPO / "build" / "train_ckpt"
+    ckdir2 = REPO / "build" / "train_ckpt_resave"
+    for d in (ckdir, ckdir2):
+        shutil.rmtree(d, ignore_errors=True)
+    ckdir.parent.mkdir(parents=True, exist_ok=True)
+    tr["disk_free_bytes"] = shutil.disk_usage(ckdir.parent).free
+    check(tr["disk_free_bytes"] > 16e9, f"{tr['disk_free_bytes'] / 1e9:.1f} GB free beside "
+          "the checkpoints; phase 15 holds two full-width checkpoints (~14.3 GB)")
+    B, S, n_steps = TRAIN_RUN["batch"], TRAIN_RUN["seq"], TRAIN_RUN["steps"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold is not the training's: the peak is
+    # reported above it
+    tr["mem_before_bytes"] = torch.cuda.memory_allocated()
+    CB.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = LAUNCH_TRAIN.main(["--arch", arch, "--steps", str(n_steps), "--batch", str(B),
+                             "--seq", str(S), "--lr", str(TRAIN_RUN["lr"]), "--log-every", "1",
+                             "--ckpt-every", "10", "--ckpt-dir", str(ckdir), "--no-resume"])
+    torch.cuda.synchronize()
+    tr["main_s"] = time.perf_counter() - t0
+    tr["peak_mem_bytes"] = torch.cuda.max_memory_allocated() - tr["mem_before_bytes"]
+    check(sum(CB.launch_counts().values()) == 0, f"the training path launched counted "
+          f"kernels: {CB.launch_counts()}")
+    loop, model = run["loop"], run["model"]
+    ocfg = loop.opt_cfg
+    check(ocfg.warmup_steps == 2, f"warmup {ocfg.warmup_steps}")
+    hist = loop.history
+    losses = [h[1] for h in hist]
+    n_par = param_count(run["params"])
+    check([h[0] for h in hist] == list(range(1, n_steps + 1)), f"history steps {hist}")
+    check(all(math.isfinite(x) for x in losses), f"{arch}: a non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"{arch}: loss {losses[0]:.4f} -> {losses[-1]:.4f}: "
+          "the last step's loss is not below the first's")
+    check(int(run["opt_state"]["step"]) == n_steps, "opt state step")
+    step_s = [h[2] for h in hist]
+    tr.update(arch=arch, params=n_par, batch=B, seq=S, losses=losses, step_s=step_s,
+              ln_vocab=math.log(qcfg.vocab))
+    log(f"[train] launch.train {arch} (full width, {n_par:,} parameters, remat full, bf16 "
+        f"compute, f32 parameters and AdamW state) B={B} S={S}, {n_steps} steps, lr "
+        f"{ocfg.lr:g}, warmup {ocfg.warmup_steps}, {ocfg.schedule}: loss {losses[0]:.4f} "
+        f"(ln {qcfg.vocab} = {math.log(qcfg.vocab):.4f}) -> {losses[-1]:.4f}; every loss "
+        f"finite; no counted kernel launched; peak memory {tr['peak_mem_bytes'] / 1e9:.3f} GB "
+        f"above the {tr['mem_before_bytes'] / 1e9:.3f} GB held before; main() "
+        f"{tr['main_s']:.1f} s")
+    log("[train] losses " + " ".join(f"{x:.4f}" for x in losses))
+    params_b, opt_b = run["params"], run["opt_state"]
+    del run, params_b, opt_b
+    torch.cuda.empty_cache()
+
+    # 15c. the checkpoint of step 10 into a fresh module and opt state, then
+    # steps 11-20 against the uninterrupted run
+    shutil.rmtree(ckdir / f"step_{n_steps:08d}")
+    check(CK.available_steps(str(ckdir)) == [10], f"checkpoints {CK.available_steps(str(ckdir))}")
+    step_dir = ckdir / "step_00000010"
+    tr["ckpt_bytes"] = sum(f.stat().st_size for f in step_dir.iterdir())
+    fresh = model.build(dev)
+    fresh_opt = OPT.init_opt_state(fresh)
+    t0 = time.perf_counter()
+    restored = CK.restore(str(ckdir), 10, like={"params": fresh, "opt_state": fresh_opt})
+    torch.cuda.synchronize()
+    tr["restore_s"] = time.perf_counter() - t0
+    check(restored["step"] == 10 and int(fresh_opt["step"]) == 10, "restored step")
+    t0 = time.perf_counter()
+    CK.save(str(ckdir2), 10, params=fresh, opt_state=fresh_opt, keep=1)
+    tr["save_s"] = time.perf_counter() - t0
+    names = sorted(f.name for f in step_dir.iterdir())
+    same = filecmp.cmpfiles(step_dir, ckdir2 / "step_00000010", names, shallow=False)
+    check(not same[1] and not same[2], f"the re-saved checkpoint differs from step 10's: "
+          f"{same[1][:4]} {same[2][:4]}")
+    shutil.rmtree(ckdir2)
+    pipe = pipeline_for(model.cfg, shape_batch=B, seq_len=S, seed=0, device=dev)
+    pipe.skip_to(10)
+    step_fn = TR.make_train_step(model, ocfg)
+    resumed = []
+    for _ in range(n_steps - 10):
+        _, _, met = step_fn(fresh, fresh_opt, pipe.next_batch())
+        resumed.append(float(met["loss"]))
+    r_err = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses[10:]))
+    check(r_err <= 1e-6, f"steps 11-{n_steps} from the checkpoint: losses {r_err:.2e} from "
+          "the uninterrupted run's (bound 1e-6 relative)")
+    tr.update(resumed_losses=resumed, resume_rel_err=r_err,
+              resume_bitwise=resumed == losses[10:])
+    log(f"[train] checkpoint of step 10: {len(names) - 1} leaves, {tr['ckpt_bytes'] / 1e9:.3f} "
+        f"GB; restore into a fresh module {tr['restore_s']:.2f} s, save {tr['save_s']:.2f} s "
+        f"(its files equal step 10's byte for byte); steps 11-{n_steps} from it: losses "
+        f"{r_err:.2e} from the uninterrupted run's (bitwise: {tr['resume_bitwise']}); "
+        f"{tr['disk_free_bytes'] / 1e9:.0f} GB were free")
+    shutil.rmtree(ckdir)
+
+    # 15d. the step's numbers: wall (host clock to synchronize, the loop's
+    # heartbeat), device time and kernels of one step (torch.profiler), the
+    # optimizer apart (CUDA events)
+    tokens = B * S
+    wall_ms = float(np.median(step_s[1:])) * 1e3
+    batch = pipe.next_batch()
+    from torch.profiler import ProfilerActivity, profile
+    step_fn(fresh, fresh_opt, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_fn(fresh, fresh_opt, batch)
+        torch.cuda.synchronize()
+    dev_us, n_ev = {}, 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us[ev.name] = dev_us.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+            n_ev += 1
+    check(n_ev > 0, "torch.profiler traced no device time in the train step")
+    _, _, grads = TR.loss_and_grads(model, fresh, batch)
+    opt_ms = time_ms(torch, lambda: OPT.adamw_update(ocfg, grads, fresh_opt, fresh), reps=10)
+    opt_wall = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        OPT.adamw_update(ocfg, grads, fresh_opt, fresh)
+        torch.cuda.synchronize()
+        opt_wall.append(time.perf_counter() - t0)
+    device_ms = sum(dev_us.values()) / 1e3
+    flops = 6 * n_par * tokens
+    tr.update(wall_ms_per_step=wall_ms, device_ms_per_step=device_ms, kernels_per_step=n_ev,
+              optimizer_ms=opt_ms, optimizer_wall_ms=float(np.median(opt_wall)) * 1e3,
+              tokens_per_s=tokens / (wall_ms * 1e-3),
+              model_tflops=flops / (wall_ms * 1e-3) / 1e12, flops_per_step=flops,
+              idle_share=1 - device_ms / wall_ms,
+              top=sorted(((round(t / 1e3, 4), k[:80]) for k, t in dev_us.items()),
+                         reverse=True)[:8])
+    log(f"[train] {arch} B={B} S={S}: {wall_ms:.2f} ms a step (median of steps 2-{n_steps}, "
+        f"wall), {device_ms:.2f} ms of device time in {n_ev} kernels (one profiled step; idle "
+        f"{100 * tr['idle_share']:.0f} %), optimizer {opt_ms:.2f} ms of device time (CUDA "
+        f"events), {tr['optimizer_wall_ms']:.2f} ms wall; "
+        f"{tr['tokens_per_s']:.0f} tokens/s, {tr['model_tflops']:.2f} TFLOP/s of model "
+        f"work (6 N tokens = {flops / 1e12:.2f} TFLOP a step); peak memory "
+        f"{tr['peak_mem_bytes'] / 1e9:.3f} GB; card: {smi}")
+    for t_ms, nm in tr["top"]:
+        log(f"[train]   {t_ms:.4f} ms  {nm}")
+    del fresh, fresh_opt, grads
+    torch.cuda.empty_cache()
+    tr["phase_s"] = time.perf_counter() - t15
+    log(f"[train] phase 15 took {tr['phase_s']:.1f} s")
+    return tr
 
 
 def main(argv=None) -> int:
@@ -2391,6 +2639,9 @@ def main(argv=None) -> int:
 
     # --- 14. the LM serving path: Qwen3-0.6B at full width -----------------------
     out["lm"] = lm_phase(torch, dev, smi, record, compare)
+
+    # --- 15. the training path: Qwen3-0.6B at full width -----------------------------
+    out["train"] = train_phase(torch, dev, smi)
 
     # --- report -----------------------------------------------------------------
     names = ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv", "sell_spmm", "stream_triad",

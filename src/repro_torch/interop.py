@@ -4,10 +4,13 @@
 the numpy arrays of a container of the same kind and its scalar metadata,
 so both packages can be fed the identical matrix; ``sparse_linear_from_arrays``
 builds a ``SparseLinear`` over such a container, ``expert_weights``
-takes MoE expert weights ``W (E, D, F)`` over, and ``lm_state_from_reference``
-turns an LM's parameter tree into the port module's state dict.  It reads arrays only and
-imports nothing of the reference package; bf16 and fp8 arrays (whose numpy
-dtypes come from an extension package) are taken over by their raw bits.
+takes MoE expert weights ``W (E, D, F)`` over, ``lm_state_from_reference``
+turns an LM's parameter tree into the port module's state dict and
+``opt_state_from_reference`` / ``opt_state_to_reference`` carry an AdamW
+state across (``utils.tree.stacked_tree`` is the way back for parameters).
+It reads arrays only and imports nothing of the reference package; bf16 and
+fp8 arrays (whose numpy dtypes come from an extension package) are taken
+over by their raw bits.
 """
 from __future__ import annotations
 
@@ -100,7 +103,7 @@ def lm_state_from_reference(cfg, tree) -> dict:
     and lists of arrays).  Each stacked leaf of ``units`` / ``enc_units`` /
     ``dec_units`` is split along axis 0, one entry a unit module; values
     pass bit for bit (``as_tensor``)."""
-    from .models.transformer import STACKED
+    from .utils.tree import STACKED
 
     n_stacked = {"units": cfg.n_units, "enc_units": cfg.n_enc_layers,
                  "dec_units": cfg.n_layers}
@@ -125,3 +128,20 @@ def lm_state_from_reference(cfg, tree) -> dict:
 
     walk(tree, [])
     return state
+
+
+def opt_state_from_reference(cfg, tree) -> dict:
+    """The port's AdamW state ({"m", "v"} keyed by the module's parameter
+    names, "step" an int32 scalar tensor) of the reference's opt-state tree
+    ``tree`` for the config ``cfg``; values pass bit for bit."""
+    return {"m": lm_state_from_reference(cfg, tree["m"]),
+            "v": lm_state_from_reference(cfg, tree["v"]),
+            "step": torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32)}
+
+
+def opt_state_to_reference(opt_state: dict) -> dict:
+    """The reference's opt-state tree of the port's AdamW state: the moments
+    stacked as the reference's parameter tree (tensors on their device)."""
+    from .utils.tree import stacked_tree
+    return {"m": stacked_tree(opt_state["m"]), "v": stacked_tree(opt_state["v"]),
+            "step": opt_state["step"]}

@@ -18,16 +18,18 @@ The attention flavour is GQA by default, MLA when ``cfg.mla`` is set.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from . import attention as A
 from . import mamba2 as M2
 from . import moe as MOE
-from ..utils.tree import TensorSpec, map_tree
+from ..utils.tree import TensorSpec, map_tree, stacked_tree
 from .layers import (MLP, Embed, RMSNorm, apply_embed, apply_mlp, apply_rmsnorm,
                      apply_unembed, softmax_cross_entropy)
 
@@ -67,8 +69,8 @@ class ModelConfig:
     k_chunk: int = 1024
     compute_dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
-    # kept as data so the configs equal the reference's; the training and
-    # sharding slice gives them their effect
+    # remat takes effect in lm_forward / whisper (remat_call); the rest are
+    # data for the sharding rules and the dry-run, as in the reference
     remat: str = "full"              # none | full | dots
     cache_dtype: Any = torch.bfloat16
     scan_unroll: int = 1
@@ -276,6 +278,35 @@ def _kv_spec(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     return {"k": kv, "v": kv}
 
 
+#: the products ``remat="dots"`` keeps (the reference's ``checkpoint_dots``
+#: saves every ``dot_general``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    P = torch.utils.checkpoint.CheckpointPolicy
+    return P.MUST_SAVE if op in _DOTS else P.PREFER_RECOMPUTE
+
+
+def remat_call(fn, remat: str, *args):
+    """``fn(*args)`` under the reference's activation checkpointing of a
+    scanned unit (``remat``: "none" | "full" | "dots"): "full" keeps only
+    the inputs and recomputes the unit in the backward pass, "dots" also
+    keeps the matmul outputs.  Only while grad is enabled: serving, under
+    ``no_grad``, runs ``fn`` as it is."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if remat == "full":
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        ctx = functools.partial(torch.utils.checkpoint.create_selective_checkpoint_contexts,
+                                _dots_policy)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 context_fn=ctx)
+    raise ValueError(f"remat must be none, full or dots, got {remat!r}")
+
+
 def unit_cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> dict:
     """TensorSpec tree of one unit's cache."""
     if cfg.family in ("dense", "moe"):
@@ -293,9 +324,6 @@ def unit_cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> dict:
 # full model
 # ---------------------------------------------------------------------------
 
-#: the module lists whose entries the reference stacks along a leading axis
-STACKED = ("units", "enc_units", "dec_units")
-
 
 def stack_specs(tree, n: int):
     return map_tree(lambda s: TensorSpec((n,) + s.shape, s.dtype), tree)
@@ -309,20 +337,8 @@ def unit_view(tree, i: int):
 def param_specs(module: nn.Module) -> dict:
     """The reference's parameter tree of ``module`` as TensorSpecs: nested
     dicts by name, ``head_layers`` a list, the ``STACKED`` lists stacked."""
-    tree: dict = {}
-    for key, t in module.state_dict().items():
-        *path, leaf = key.split(".")
-        node = tree
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = TensorSpec(t.shape, t.dtype)
-    for key in STACKED:
-        if key in tree:
-            tree[key] = stack_specs(tree[key]["0"], len(tree[key]))
-    if "head_layers" in tree:
-        tree["head_layers"] = [tree["head_layers"][str(i)]
-                               for i in range(len(tree["head_layers"]))]
-    return tree
+    return stacked_tree({k: TensorSpec(t.shape, t.dtype) for k, t in module.state_dict().items()},
+                        stack=lambda ss: TensorSpec((len(ss),) + ss[0].shape, ss[0].dtype))
 
 
 class LM(nn.Module):
@@ -376,7 +392,9 @@ def lm_forward(params: LM, cfg: ModelConfig, inputs, *, positions=None, cache=No
         aux = _add_aux(aux, aux_i)
     for i, unit in enumerate(params.units):
         sub = unit_view(cache["units"], i) if cache is not None else None
-        x, _, aux_u = unit_apply(unit, x, cfg, positions, sub, cache_pos)
+        x, _, aux_u = remat_call(
+            lambda x_, u_, c_: unit_apply(u_, x_, cfg, positions, c_, cache_pos),
+            cfg.remat, x, unit, sub)
         aux = _add_aux(aux, aux_u)
 
     x = apply_rmsnorm(params.ln_f, x)

@@ -14,7 +14,7 @@ from torch import nn
 from . import attention as A
 from .layers import (MLP, Embed, RMSNorm, apply_embed, apply_mlp, apply_rmsnorm,
                      apply_unembed, softmax_cross_entropy)
-from .transformer import ModelConfig, param_specs, stack_specs, unit_view
+from .transformer import ModelConfig, param_specs, remat_call, stack_specs, unit_view
 from ..utils.tree import TensorSpec
 
 
@@ -60,15 +60,24 @@ def _mlp_residual(p, x, cfg: ModelConfig):
     return x + h
 
 
+def _remat(cfg: ModelConfig) -> str:
+    """The reference checkpoints both stacks fully under "full" and "dots"."""
+    return "full" if cfg.remat in ("full", "dots") else "none"
+
+
 def encode(params: EncDec, cfg: ModelConfig, enc_embeds: torch.Tensor) -> torch.Tensor:
     """enc_embeds (B, Se, D) stub frame embeddings -> (B, Se, D)."""
     x = enc_embeds.to(cfg.compute_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    for u in params.enc_units:
+
+    def body(x, u):
         h, _ = A.gqa_apply(u.attn, apply_rmsnorm(u.ln_attn, x), cfg.attn, positions,
                            causal=False, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
                            compute_dtype=cfg.compute_dtype)
-        x = _mlp_residual(u, x + h, cfg)
+        return _mlp_residual(u, x + h, cfg)
+
+    for u in params.enc_units:
+        x = remat_call(body, _remat(cfg), x, u)
     return apply_rmsnorm(params.ln_enc, x)
 
 
@@ -79,8 +88,8 @@ def decode(params: EncDec, cfg: ModelConfig, tokens, enc_out, *, cache=None, cac
     x = apply_embed(params.embed, tokens, cfg.compute_dtype)
     base = int(cache_pos) if cache_pos is not None else 0
     positions = base + torch.arange(x.shape[1], device=x.device)
-    for i, u in enumerate(params.dec_units):
-        sub = unit_view(cache["units"], i) if cache is not None else None
+
+    def body(x, u, sub):
         h, _ = A.gqa_apply(u.self_attn, apply_rmsnorm(u.ln_self, x), cfg.attn, positions,
                            cache=sub, cache_pos=cache_pos, q_chunk=cfg.q_chunk,
                            k_chunk=cfg.k_chunk, compute_dtype=cfg.compute_dtype)
@@ -88,7 +97,11 @@ def decode(params: EncDec, cfg: ModelConfig, tokens, enc_out, *, cache=None, cac
         h, _ = A.gqa_apply(u.cross_attn, apply_rmsnorm(u.ln_cross, x), cfg.attn, positions,
                            causal=False, kv_input=enc_out, q_chunk=cfg.q_chunk,
                            k_chunk=cfg.k_chunk, compute_dtype=cfg.compute_dtype)
-        x = _mlp_residual(u, x + h, cfg)
+        return _mlp_residual(u, x + h, cfg)
+
+    for i, u in enumerate(params.dec_units):
+        sub = unit_view(cache["units"], i) if cache is not None else None
+        x = remat_call(body, _remat(cfg), x, u, sub)
     x = apply_rmsnorm(params.ln_f, x)
     return apply_unembed(params.embed, x, cfg.compute_dtype), cache
 

@@ -5,6 +5,13 @@ does) or list / tuple whose leaves are tensors or :class:`TensorSpec`s; an
 ``nn.Module`` stands for its ``state_dict()``.  ``TensorSpec`` takes the
 place of the reference's ``jax.ShapeDtypeStruct``: a shape and a dtype, no
 storage.
+
+The port's modules name a parameter by its dotted path (``units.3.attn.wq``);
+the reference keeps one tree in which the entries of the ``STACKED`` lists
+are stacked along a leading axis (``units/attn/wq`` of shape ``(L, ...)``)
+and ``head_layers`` is a list.  ``stacked_tree`` builds the reference's tree
+from names, ``reference_path`` names the leaf (and the entry of its
+leading axis) a port name lands in.
 """
 from __future__ import annotations
 
@@ -23,6 +30,54 @@ class TensorSpec:
 
     def __post_init__(self):
         object.__setattr__(self, "shape", tuple(int(s) for s in self.shape))
+
+
+#: the module lists whose entries the reference stacks along a leading axis
+STACKED = ("units", "enc_units", "dec_units")
+#: the module lists the reference keeps as Python lists
+LISTED = ("head_layers",)
+
+
+def reference_path(name: str) -> tuple[str, int | None]:
+    """The reference's slash-joined leaf path of the port's parameter
+    ``name``, and the index along its stacked axis (None when unstacked):
+    ``units.3.attn.wq`` -> (``units/attn/wq``, 3)."""
+    parts = name.split(".")
+    if parts[0] in STACKED:
+        return "/".join([parts[0]] + parts[2:]), int(parts[1])
+    return "/".join(parts), None
+
+
+def stacked_tree(named, stack=None) -> dict:
+    """The reference's nested tree of ``named`` (a module -- its parameters
+    -- or a dict of leaves keyed by the port's parameter names, such as
+    grads or AdamW moments): dicts by name, the ``STACKED`` lists' leaves
+    combined by ``stack`` (default ``torch.stack`` on axis 0) in unit order,
+    the ``LISTED`` lists as lists."""
+    if isinstance(named, nn.Module):
+        named = {k: p.detach() for k, p in named.named_parameters()}
+    stack = torch.stack if stack is None else stack
+    tree: dict = {}
+    for key, leaf in named.items():
+        *path, last = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    for key in STACKED:
+        if key in tree:
+            tree[key] = _stack_entries([tree[key][str(i)] for i in range(len(tree[key]))],
+                                       stack)
+    for key in LISTED:
+        if key in tree:
+            tree[key] = [tree[key][str(i)] for i in range(len(tree[key]))]
+    return tree
+
+
+def _stack_entries(entries: list, stack):
+    if isinstance(entries[0], dict):
+        return {k: _stack_entries([e[k] for e in entries], stack) for k in entries[0]}
+    return stack(entries)
 
 
 def _items(tree):
@@ -92,9 +147,12 @@ def tree_any_nonfinite(tree) -> bool:
 
 
 def global_norm(tree) -> torch.Tensor:
-    sq = [leaf.float().square().sum() for leaf in leaves(tree)
-          if isinstance(leaf, torch.Tensor)]
-    return torch.stack(sq).sum().sqrt() if sq else torch.tensor(0.0)
+    """sqrt of the sum of every leaf's squared entries, in f32 (one
+    multi-tensor norm, not a reduction a leaf)."""
+    ts = [leaf.float() for leaf in leaves(tree) if isinstance(leaf, torch.Tensor)]
+    if not ts:
+        return torch.tensor(0.0)
+    return torch.stack(torch._foreach_norm(ts)).square().sum().sqrt()
 
 
 def cast_tree(tree, dtype: torch.dtype):

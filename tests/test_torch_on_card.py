@@ -980,3 +980,67 @@ def test_lm_sparse_ffn_weight_launches_its_kernel_once_a_call(cuda_device):
             kernel, f"{kernel}_decode", f"{kernel}_wide"}
     want = x @ torch.from_numpy(w).to(cuda_device).T
     assert float((y - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ("qwen3-0.6b", "jamba-1.5-large-398b"))
+def test_train_step_on_the_card_matches_the_host(cuda_device, name):
+    """One reduced train step (f32 compute, TF32 off) on the card against the
+    same step on the host: loss and grad_norm 1e-5 relative, parameters
+    within 2 * lr (AdamW's first step is about lr * sign(g)); no counted
+    kernel is launched (the training path runs on torch ops)."""
+    from repro_torch.configs import reduced, smoke_batch
+    from repro_torch.models.registry import Model, get_config
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Model(reduced(get_config(name), compute_dtype=torch.float32))
+    host = model.init(torch.Generator().manual_seed(0), device="cpu")
+    card = model.build(cuda_device)
+    card.load_state_dict(host.state_dict())
+    batch = smoke_batch(model.cfg, torch.Generator().manual_seed(1))
+    step = T.make_train_step(model, O.OptimizerConfig(lr=1e-2, warmup_steps=1, schedule="const"))
+    before = CB.launch_counts()
+    _, opt_c, m_c = step(card, O.init_opt_state(card), {k: v.to(cuda_device)
+                                                       for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert CB.launch_counts() == before
+    _, _, m_h = step(host, O.init_opt_state(host), batch)
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m_c[k]) - float(m_h[k])) <= 1e-5 * abs(float(m_h[k])), k
+    hp = dict(host.named_parameters())
+    for k, p in card.named_parameters():
+        assert p.device == cuda_device
+        assert float((p.detach().cpu().double() - hp[k].detach().double()).abs().max()) <= 2e-2
+    assert opt_c["step"].device == cuda_device and int(opt_c["step"]) == 1
+
+
+@pytest.mark.cuda
+def test_checkpoint_save_and_restore_on_the_card(cuda_device, tmp_path):
+    """A reduced model and its AdamW state on the card, after two steps:
+    saved, restored into a fresh module and opt state on the card and on
+    the host, bit for bit (bf16 leaves included: jamba's parameters)."""
+    from repro_torch.configs import reduced, smoke_batch
+    from repro_torch.models.registry import Model, get_config
+    from repro_torch.train import checkpoint as C
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as T
+    model = Model(reduced(get_config("jamba-1.5-large-398b")))
+    card = model.init(torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    opt = O.init_opt_state(card)
+    step = T.make_train_step(model, O.OptimizerConfig(lr=1e-2, warmup_steps=1))
+    for i in range(2):
+        batch = smoke_batch(model.cfg, torch.Generator(device=cuda_device).manual_seed(i))
+        step(card, opt, batch)
+    C.save(str(tmp_path), 2, params=card, opt_state=opt, keep=1)
+    for dev in (cuda_device, torch.device("cpu")):
+        fresh = model.build(dev)
+        fresh_opt = O.init_opt_state(fresh)
+        out = C.restore(str(tmp_path), 2, like={"params": fresh, "opt_state": fresh_opt})
+        assert out["step"] == 2 and int(fresh_opt["step"]) == 2
+        fp = dict(fresh.named_parameters())
+        for k, p in card.named_parameters():
+            assert fp[k].device == dev and fp[k].dtype == p.dtype
+            assert torch.equal(fp[k].cpu(), p.detach().cpu()), k
+            assert torch.equal(fresh_opt["m"][k].cpu(), opt["m"][k].cpu()), k
+            assert torch.equal(fresh_opt["v"][k].cpu(), opt["v"][k].cpu()), k
