@@ -157,7 +157,29 @@ repository configures:
    from it against the uninterrupted run's losses (1e-6 relative; whether
    bitwise is reported); the checkpoints are deleted after; (d) the wall
    ms a step, one profiled step's device ms and kernels, the optimizer
-   alone, tokens/s and the model TFLOP/s at 6 N tokens, beside the card.
+   alone, tokens/s and the model TFLOP/s at 6 N tokens, beside the card;
+16. the dry-run and roofline tools: (a) ``launch.dryrun`` on the ``meta``
+   device (no allocation, no card) at full width on the (16, 16) production
+   mesh for every shape of ``DRY_ARCHS`` (Qwen3-0.6B and DeepSeek-V2-Lite,
+   an MoE arch), run as child processes in three background lanes from the
+   end of the build (``MetaSweep``): every cell ``ok`` or skipped for the
+   reference's reason, no counted kernel, no collective or temp count
+   reported as a number; each cell's host seconds and the roofline table
+   (``launch.roofline.table_from_jsonl``) on the H100 data sheet; (b)
+   ``launch.hillclimb --cell qwen3_train --iter dp_only`` (its record under
+   ``chiprun_out/phase16/``; the depth fit equal to the full-depth count),
+   then that per-device program on the card -- B = 1, S = 4096, remat full,
+   bf16 compute, the f32 parameters and AdamW state whole -- counted under
+   ``utils.op_flops.OpCounter``: its matmul FLOPs x 256 equal the meta
+   record's exactly, no counted kernel launched, every loss finite; the
+   step's device ms (CUDA events, median of ``DRY_STEPS``) and wall ms, one
+   profiled step's kernels, device time and idle share, the
+   peak memory beside the arguments the card holds, the roofline row
+   (compute at 989 TFLOP/s, memory analytic and counted at 3.35 TB/s), the
+   critical term's share of the step and the model FLOP/s as a share of
+   989 TFLOP/s; (c) one ``decode_32k`` step at B = 1 against a 32,768-token
+   cache: finite logits, its counted bytes beside params + cache and their
+   time at 3.35 TB/s, and its device ms.
 
 Phase 7 ends with the measured warm path: every timed candidate of its
 seven matrices recorded into a ``core.tunedb.TuneDB`` (keyed by signature,
@@ -169,7 +191,7 @@ logged beside the committed ``h100`` table.
 
 It prints a ``kernels`` JSON line (with each kernel's launches on the
 serving, the distributed and the LM paths; the training path of phase 15
-launches none of them) before the last line and ends with
+and the steps of phase 16 launch none of them) before the last line and ends with
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
 exits non-zero; without CUDA, or without the repository beside it, it
 prints no result and exits non-zero.
@@ -319,6 +341,22 @@ def ptxas_entries(build_log: str) -> list[dict]:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def device_split(torch, fn, what: str) -> tuple[dict, int]:
+    """({kernel name: device us}, kernels) of one call of ``fn`` traced by
+    torch.profiler; fails when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_us, n_ev = {}, 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us[ev.name] = dev_us.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+            n_ev += 1
+    check(n_ev > 0, f"torch.profiler traced no device time in {what}")
+    return dev_us, n_ev
 
 
 
@@ -765,18 +803,10 @@ def train_phase(torch, dev, smi: str) -> dict:
     tokens = B * S
     wall_ms = float(np.median(step_s[1:])) * 1e3
     batch = pipe.next_batch()
-    from torch.profiler import ProfilerActivity, profile
     step_fn(fresh, fresh_opt, batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step_fn(fresh, fresh_opt, batch)
-        torch.cuda.synchronize()
-    dev_us, n_ev = {}, 0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us[ev.name] = dev_us.get(ev.name, 0.0) + ev.time_range.elapsed_us()
-            n_ev += 1
-    check(n_ev > 0, "torch.profiler traced no device time in the train step")
+    dev_us, n_ev = device_split(torch, lambda: step_fn(fresh, fresh_opt, batch),
+                                "the train step")
     _, _, grads = TR.loss_and_grads(model, fresh, batch)
     opt_ms = time_ms(torch, lambda: OPT.adamw_update(ocfg, grads, fresh_opt, fresh), reps=10)
     opt_wall = []
@@ -808,6 +838,318 @@ def train_phase(torch, dev, smi: str) -> dict:
     tr["phase_s"] = time.perf_counter() - t15
     log(f"[train] phase 15 took {tr['phase_s']:.1f} s")
     return tr
+
+
+#: phase 16: the architectures whose every shape the meta sweep runs, the
+#: hill-climb cell whose per-device program then runs on the card, and the
+#: timed steps of 16b / 16c (after a counted step and a warm-up)
+DRY_ARCHS = ("qwen3-0.6b", "deepseek-v2-lite-16b")
+DRY_CELL = ("qwen3_train", "dp_only")
+DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+DRY_STEPS = 5
+
+
+class MetaSweep:
+    """Phase 16a's meta sweep (``launch.dryrun`` for every shape of
+    ``DRY_ARCHS``) and 16b's hill-climb record (``launch.hillclimb``), run
+    as child processes in the background from the end of the build: a
+    prefill_32k step traces for a few minutes of host time on ``meta``.
+    Three lanes, one after another within a lane, on the machine's last
+    three cores: each arch's prefill_32k, and the other shapes of both archs
+    followed by the hill-climb cell.  The children see no card
+    (``CUDA_VISIBLE_DEVICES`` empty) and write under ``out_dir``; ``stop``
+    kills any still running (also at exit)."""
+
+    def __init__(self, out_dir: Path):
+        import atexit
+        import os
+        import threading
+
+        self.dir = out_dir
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for f in list(out_dir.glob("*.jsonl")) + list(out_dir.glob("*.log")):
+            f.unlink()
+        dry = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+        rest = ",".join(s for s in DRY_SHAPES if s != "prefill_32k")
+        cell, it = DRY_CELL
+        lanes = [[("prefill_" + a, dry + ["--arch", a, "--shape", "prefill_32k"])]
+                 for a in DRY_ARCHS]
+        lanes.append([("rest_" + a, dry + ["--arch", a, "--shape", rest]) for a in DRY_ARCHS]
+                     + [("hillclimb", [sys.executable, "-m", "repro_torch.launch.hillclimb",
+                                       "--cell", cell, "--iter", it])])
+        self.env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1",
+                        CUDA_VISIBLE_DEVICES="")
+        cores = sorted(os.sched_getaffinity(0))
+        self.cores = set(cores[-3:]) if len(cores) >= 6 else set(cores)
+        self.procs, self.results, self.stopped = {}, {}, False
+        self.t0 = time.perf_counter()
+        self.threads = [threading.Thread(target=self._lane, args=(lane,), daemon=True)
+                        for lane in lanes]
+        for t in self.threads:
+            t.start()
+        atexit.register(self.stop)
+
+    def _lane(self, lane) -> None:
+        import os
+
+        for name, cmd in lane:
+            if self.stopped:
+                return
+            t0 = time.perf_counter()
+            with open(self.dir / f"{name}.log", "w") as log_f:
+                proc = subprocess.Popen(
+                    cmd + ["--out", str(self.dir / f"{name}.jsonl")], cwd=REPO, env=self.env,
+                    stdout=log_f, stderr=subprocess.STDOUT)
+                # pinned from here: a preexec_fn is not safe beside threads
+                try:
+                    os.sched_setaffinity(proc.pid, self.cores)
+                except ProcessLookupError:      # it has ended already
+                    pass
+                self.procs[name] = proc
+                rc = proc.wait()
+            self.results[name] = {"rc": rc, "wall_s": time.perf_counter() - t0,
+                                  "done_at_s": time.perf_counter() - self.t0}
+            if rc:
+                return
+
+    def wait(self, timeout: float) -> dict:
+        end = time.perf_counter() + timeout
+        for t in self.threads:
+            t.join(max(0.0, end - time.perf_counter()))
+        if any(t.is_alive() for t in self.threads):
+            self.stop()
+            raise AssertionError(f"the meta sweep did not end within {timeout:.0f} s: "
+                                 f"{self.results}")
+        return self.results
+
+    def stop(self) -> None:
+        self.stopped = True
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def dryrun_phase(torch, dev, smi: str, sweep) -> dict:
+    """Phase 16, the dry-run and roofline tools: (a) the meta sweep's cells
+    (each ``ok`` or skipped for the reference's reason) and their roofline
+    table on the H100 data sheet; (b) the hill-climb cell's record, then its
+    per-device program on the card -- the counted matmul FLOPs times the
+    devices equal to the record's, no counted kernel, every loss finite --
+    with its times, peak memory and roofline shares; (c) one decode step of
+    ``decode_32k`` at B = 1 on the card beside its counted bytes.  The LM
+    steps reach no ``pallas_call`` in the reference, so no kernel of the nine
+    runs here: the window checks that none is launched."""
+    import math
+
+    from repro_torch.kernels import cuda_build as CB
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.launch import hillclimb as HILL
+    from repro_torch.launch import roofline as ROOF
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.registry import Model, get_config
+    from repro_torch.configs import shape_applicable
+    from repro_torch.utils.hw import H100
+    from repro_torch.utils.op_flops import OpCounter
+    from repro_torch.utils.tree import leaves
+
+    t16 = time.perf_counter()
+    dr = {"card": smi}
+
+    # 16a. the meta sweep
+    lanes = sweep.wait(timeout=900)
+    dr["sweep_wait_s"] = time.perf_counter() - t16
+    check(all(r["rc"] == 0 for r in lanes.values()) and len(lanes) == 2 * len(DRY_ARCHS) + 1,
+          f"the meta sweep failed: {lanes}; logs under {sweep.dir}")
+    recs = [json.loads(ln) for f in sorted(sweep.dir.glob("*.jsonl"))
+            if f.name != "hillclimb.jsonl" for ln in f.read_text().splitlines()]
+    sweep_path = sweep.dir / "dryrun.jsonl"
+    sweep_path.write_text("".join(json.dumps(r) + "\n" for r in recs))
+    by_cell = {(r["arch"], r["shape"]): r for r in recs}
+    for arch in DRY_ARCHS:
+        for shape in DRY_SHAPES:
+            r = by_cell.get((arch, shape))
+            check(r is not None, f"the meta sweep has no record of {arch} x {shape}")
+            ok, why = shape_applicable(get_config(arch), shape)
+            if not ok:
+                check(r["status"] == "skipped" and r["reason"] == why,
+                      f"{arch} x {shape}: {r['status']}, not skipped for {why!r}")
+                continue
+            check(r["status"] == "ok", f"{arch} x {shape}: {r.get('error', r['status'])}")
+            check(r["launches"] == 0 and r["collective_bytes_per_device"] is None
+                  and r["memory"]["temp_bytes"] is None and r["collective_reason"]
+                  and r["memory"]["temp_reason"],
+                  f"{arch} x {shape}: a missing count reported as a number: {r}")
+            log(f"[dryrun] {arch} x {shape} (meta, 16x16): traced in {r['trace_s']:.1f} s of "
+                f"host time; {r['op_flops_global']:.6g} FLOPs ({r['op_matmul_flops_global']:.6g} "
+                f"in products), {r['op_bytes_global'] / 1e12:.3f} TB eager, "
+                f"{r['memory']['argument_bytes'] / 1e9:.3f} GB of arguments a device")
+    dr["cells"] = {f"{a} x {s}": {k: by_cell[(a, s)].get(k) for k in
+                                  ("status", "trace_s", "op_flops_global",
+                                   "op_matmul_flops_global", "op_bytes_global",
+                                   "flops_per_device", "model_flops", "memory", "reason")}
+                   for a in DRY_ARCHS for s in DRY_SHAPES}
+    dr["lanes"] = lanes
+    table = ROOF.table_from_jsonl(str(sweep_path), chip=H100)
+    dr["table"] = table
+    lane_s = ", ".join(f"{k} {v['wall_s']:.1f} s" for k, v in lanes.items())
+    log(f"[dryrun] the meta sweep: {len(recs)} cells in three background lanes "
+        f"({lane_s}); "
+        f"phase 16 waited {dr['sweep_wait_s']:.1f} s for it; roofline on the H100 data "
+        f"sheet (989 TFLOP/s bf16, 3.35 TB/s, 25 GB/s a link), n/c = not counted:")
+    for ln in table.splitlines():
+        log(f"[roofline] {ln}")
+
+    # 16b. the hill-climb record, then its per-device program on the card
+    cell, it = DRY_CELL
+    hill = [json.loads(ln) for ln in (sweep.dir / "hillclimb.jsonl").read_text().splitlines()]
+    rec = hill[-1]
+    check(rec["status"] == "ok" and rec["cell"] == cell and rec["iteration"] == it,
+          f"hillclimb {cell}/{it}: {rec.get('error', rec['status'])}")
+    ex = rec["extrap"]
+    check(ex["flops_per_device_extrap"] == rec["flops_per_device"]
+          and ex["bytes_per_device_extrap"] == rec["bytes_per_device"],
+          f"the depth fit does not reproduce the full-depth count: {ex}")
+    arch, shape = HILL.CELLS[cell]
+    cfg = get_config(arch, **HILL.resolve_overrides(HILL.ITERS[it]))
+    check(cfg.remat == "full" and cfg.compute_dtype == torch.bfloat16
+          and rec["local_batch"] == 1 and rec["bytes_per_device"] is not None,
+          f"{arch} {it}: remat {cfg.remat}, compute {cfg.compute_dtype}, local batch "
+          f"{rec['local_batch']}, bytes {rec['bytes_per_device']}")
+    n_dev = rec["n_devices"]
+    model = Model(cfg)
+    mesh = make_production_mesh()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(gen, device=dev)
+    fn, args, _, _ = DRY.build_step(model, shape, mesh, device=dev, batch=rec["local_batch"],
+                                    params=params, generator=gen)
+    CB.reset_launch_counts()
+    with OpCounter() as oc:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    losses = [float(out[2]["loss"])]
+    card = oc.counts
+    check(card.matmul * n_dev == rec["op_matmul_flops_global"],
+          f"{arch} {it}: the card's matmul FLOPs x {n_dev} = {card.matmul * n_dev} != the "
+          f"meta record's {rec['op_matmul_flops_global']}")
+    walls, dev_ms = [], []
+    for i in range(DRY_STEPS + 1):             # the first is a warm-up
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.record()
+        out = fn(*args)
+        e.record()
+        torch.cuda.synchronize()
+        if i:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(s.elapsed_time(e))
+        losses.append(float(out[2]["loss"]))
+    dev_us, n_ev = device_split(torch, lambda: fn(*args), "the phase 16 step")
+    check(card.launches == 0 and sum(CB.launch_counts().values()) == 0,
+          f"counted kernels launched in the phase 16 step: {CB.launch_counts()}")
+    check(all(math.isfinite(x) for x in losses), f"{arch} {it}: a non-finite loss {losses}")
+    peak = torch.cuda.max_memory_allocated() - mem0
+    params_t, opt_state, batch = args
+    held = sum(t.numel() * t.element_size() for t in list(params_t.parameters())
+               + list(opt_state["m"].values()) + list(opt_state["v"].values())
+               + [opt_state["step"]] + list(batch.values()))
+    opt_local = DRY.local_bytes(DRY.arg_shapes(model, shape)[1],
+                                DRY.step_specs(model, shape, mesh)[1], mesh)
+    step_ms = float(np.median(dev_ms))
+    row = ROOF.analyse_record(rec, H100)
+    mem_card_s = card.bytes / H100.hbm_bytes_per_s
+    crit_s = max(row.compute_s, row.memory_s)
+    crit_counted_s = max(row.compute_s, mem_card_s)
+    tokens = rec["local_batch"] * 4096
+    model_fl = 6 * rec["n_active_params"] * tokens
+    dr["card_step"] = {
+        "arch": arch, "cell": cell, "iteration": it, "batch": rec["local_batch"], "seq": 4096,
+        "devices": n_dev, "matmul_flops": card.matmul, "flops": card.flops,
+        "counted_bytes": card.bytes, "record_bytes_per_device": rec["bytes_per_device"],
+        "record_flops_per_device": rec["flops_per_device"], "losses": losses,
+        "device_ms": dev_ms, "device_ms_median": step_ms, "wall_ms": walls,
+        "wall_ms_median": float(np.median(walls)), "peak_mem_bytes": peak,
+        "held_bytes": held, "record_argument_bytes": rec["memory"]["argument_bytes"],
+        "record_opt_local_bytes": opt_local, "compute_ms": row.compute_s * 1e3,
+        "memory_analytic_ms": row.memory_s * 1e3,
+        "memory_counted_ms": mem_card_s * 1e3,
+        "memory_counted_meta_ms": row.memory_s_counted * 1e3, "bound": row.bound,
+        "critical_share": crit_s / (step_ms * 1e-3),
+        "critical_counted_share": crit_counted_s / (step_ms * 1e-3),
+        "model_flops": model_fl,
+        "model_tflops": model_fl / (step_ms * 1e-3) / 1e12,
+        "mfu": model_fl / (step_ms * 1e-3) / H100.peak_flops_bf16,
+        "kernels": n_ev, "busy_ms": sum(dev_us.values()) / 1e3,
+        "idle_share": 1 - sum(dev_us.values()) / 1e3 / step_ms,
+        "top": sorted(((round(t / 1e3, 4), k[:80]) for k, t in dev_us.items()),
+                      reverse=True)[:8]}
+    cs = dr["card_step"]
+    log(f"[dryrun] {cell}/{it} record ({n_dev} devices, mesh {rec['mesh']}): "
+        f"{rec['op_flops_global']:.6g} FLOPs global ({rec['op_matmul_flops_global']} in "
+        f"products), {rec['flops_per_device']:.6g} a device, {rec['bytes_per_device'] / 1e9:.3f} "
+        f"GB eager a device at B = {rec['local_batch']} (meta), arguments "
+        f"{rec['memory']['argument_bytes'] / 1e9:.3f} GB a device; depth fit = the count")
+    log(f"[dryrun] {arch} per-device step on the card (B = {cs['batch']}, S = 4096, remat "
+        f"full, bf16 compute, f32 parameters and AdamW state whole): matmul FLOPs "
+        f"{card.matmul} x {n_dev} = the record's, exactly; no counted kernel; losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}")
+    log(f"[dryrun] step {step_ms:.2f} ms of device time (CUDA events, median of "
+        f"{DRY_STEPS}; {' '.join(f'{x:.2f}' for x in dev_ms)}), wall {cs['wall_ms_median']:.2f} "
+        f"ms; peak memory {peak / 1e9:.3f} GB beside {held / 1e9:.3f} GB of arguments the card "
+        f"holds (the record's {rec['memory']['argument_bytes'] / 1e9:.3f} GB of ZeRO-1 "
+        f"shards - {opt_local / 1e9:.3f} GB of opt-state shard + the opt state whole); "
+        f"card: {smi}")
+    log(f"[dryrun] H100 roofline of the step: compute {cs['compute_ms']:.2f} ms at 989 "
+        f"TFLOP/s ({card.flops:.6g} counted FLOPs); memory {cs['memory_analytic_ms']:.2f} ms "
+        f"analytic, {cs['memory_counted_ms']:.2f} ms counted on the card "
+        f"({card.bytes / 1e9:.3f} GB eager; meta {cs['memory_counted_meta_ms']:.2f} ms) at "
+        f"3.35 TB/s; bound {row.bound}; the critical term is {100 * cs['critical_share']:.1f} % "
+        f"of the measured step ({100 * cs['critical_counted_share']:.1f} % with the counted "
+        f"bytes); model work 6 N tokens = {model_fl / 1e12:.3f} TFLOP, "
+        f"{cs['model_tflops']:.2f} TFLOP/s = {100 * cs['mfu']:.2f} % of 989; card: {smi}")
+    log(f"[dryrun] one profiled step: {cs['busy_ms']:.2f} ms of device time in {n_ev} "
+        f"kernels, idle {100 * cs['idle_share']:.1f} % of the {step_ms:.2f} ms step; card: {smi}")
+    for t_ms, nm in cs["top"]:
+        log(f"[dryrun]   {t_ms:.4f} ms  {nm}")
+    del out, fn, args, params_t, opt_state, batch
+    torch.cuda.empty_cache()
+
+    # 16c. one decode step of decode_32k at B = 1 against a full cache
+    fn, args, _, _ = DRY.build_step(model, "decode_32k", mesh, device=dev, batch=1,
+                                    params=params, generator=gen)
+    CB.reset_launch_counts()
+    with OpCounter() as oc:
+        logits, _ = fn(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (1, cfg.vocab),
+          f"decode_32k: logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    p_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    c_bytes = sum(t.numel() * t.element_size() for t in leaves(args[1]))
+    d_ms = time_ms(torch, lambda: fn(*args), reps=10)
+    check(oc.counts.launches == 0 and sum(CB.launch_counts().values()) == 0,
+          f"counted kernels launched in the decode step: {CB.launch_counts()}")
+    bound = (p_bytes + c_bytes) / H100.hbm_bytes_per_s * 1e3
+    dr["decode"] = {"batch": 1, "cache_len": 32768, "cache_dtype": str(cfg.cache_dtype),
+                    "param_bytes": p_bytes, "cache_bytes": c_bytes,
+                    "counted_bytes": oc.counts.bytes, "counted_flops": oc.counts.flops,
+                    "bound_ms": bound, "counted_bound_ms":
+                        oc.counts.bytes / H100.hbm_bytes_per_s * 1e3,
+                    "device_ms": d_ms, "bound_share": bound / d_ms}
+    dd = dr["decode"]
+    log(f"[dryrun] {arch} decode_32k at B = 1 (32,768-token {cfg.cache_dtype} cache, f32 "
+        f"parameters): {d_ms:.3f} ms of device time (CUDA events, median of 10); params "
+        f"{p_bytes / 1e9:.3f} GB + cache {c_bytes / 1e9:.3f} GB = {bound:.3f} ms at 3.35 TB/s "
+        f"({100 * dd['bound_share']:.1f} % of the step); the eager step moves "
+        f"{oc.counts.bytes / 1e9:.3f} GB (counted; {dd['counted_bound_ms']:.3f} ms); card: {smi}")
+    del fn, args, params, logits
+    torch.cuda.empty_cache()
+    dr["phase_s"] = time.perf_counter() - t16
+    log(f"[dryrun] phase 16 took {dr['phase_s']:.1f} s")
+    return dr
 
 
 def main(argv=None) -> int:
@@ -912,6 +1254,8 @@ def main(argv=None) -> int:
         regs = [ln.strip() for ln in CB.build_log(name).splitlines()
                 if "registers" in ln or "spill" in ln and "0 bytes" not in ln]
         log(f"[ptxas] {name}: " + ("; ".join(regs[:2]) if regs else "(cached build)"))
+    # phase 16's meta sweep runs beside phases 2-15, on cores of its own
+    meta_sweep = MetaSweep(REPO / "chiprun_out" / "phase16")
     out["ptxas"] = {name: ptxas_entries(CB.build_log(name)) for name in ptxas_of}
     for name, ents in out["ptxas"].items():
         for ent in ents:
@@ -1497,7 +1841,7 @@ def main(argv=None) -> int:
     cp, cw, col, val, scale, perm = map(on, (ss.chunk_ptr, ss.chunk_width, ss.col_idx,
                                              ss.val, ss.scale, ss.perm))
     seg = on(sell.sell_segment_ids(ss))
-    col3, val3 = map(on, sell.sell_padded_views(ss))
+    col3, val3 = map(on, sell.sell_padded_views(ss)[:2])
     inv = on(sell.inverse_perm(ss))
     t_flat = time_ms(torch, lambda: sell_spmv.sell_spmv_plain(cp, cw, col, val, scale, perm,
                                                                x64, ss.shape[0], 8, seg))
@@ -2642,6 +2986,9 @@ def main(argv=None) -> int:
 
     # --- 15. the training path: Qwen3-0.6B at full width -----------------------------
     out["train"] = train_phase(torch, dev, smi)
+
+    # --- 16. the dry-run and roofline tools: the meta sweep, Qwen3-0.6B's step --------
+    out["dryrun"] = dryrun_phase(torch, dev, smi, meta_sweep)
 
     # --- report -----------------------------------------------------------------
     names = ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv", "sell_spmm", "stream_triad",

@@ -48,8 +48,9 @@ def shape_applicable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
     return True, ""
 
 
-def input_specs(cfg: ModelConfig, shape: str) -> dict:
-    """TensorSpec stand-ins for every input of the step.
+def input_specs(cfg: ModelConfig, shape: str, batch: int | None = None) -> dict:
+    """TensorSpec stand-ins for every input of the step, at the shape's
+    global batch or at ``batch`` (one device's share of it).
 
     train  -> {"batch": {...}}
     prefill-> {"batch": {...}, "cache": tree}
@@ -58,7 +59,7 @@ def input_specs(cfg: ModelConfig, shape: str) -> dict:
     from ..models.registry import Model
 
     spec = SHAPES[shape]
-    B, S = spec.global_batch, spec.seq_len
+    B, S = spec.global_batch if batch is None else batch, spec.seq_len
     model = Model(cfg)
     toks = SDS((B, S), torch.int32)
     embeds = SDS((B, S, cfg.d_model), torch.bfloat16)

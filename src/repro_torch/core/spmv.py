@@ -5,7 +5,10 @@ registry entry of the container's format -- the composite ``torch`` entry
 (the reference's XLA formulation) for ``spmv`` / ``spmm``, the per-call
 loop formulations for ``naive_spmv`` -- built once per container and
 device and cached on the container.  For the compiled path with the CUDA
-kernels use ``core.plan.SpMVPlan.compile``.
+kernels use ``core.plan.SpMVPlan.compile``.  The reference's per-format
+functions (``csr_spmv(m, x)``, ``sell_spmv_loop(m, x)``, ...) are
+re-exported from ``repro_torch.kernels``: ``*_spmv`` / ``*_spmm`` run the
+format's ``torch`` entry on x's device, ``*_loop`` its loop oracle.
 
 Every function runs on the device of a tensor ``x``.  A numpy ``x`` is
 placed on the card, or on the host when ``device="cpu"`` is passed (never
@@ -21,6 +24,41 @@ import numpy as np
 import torch
 
 from ..kernels import registry as R
+from ..kernels.bsr import bsr_block_row_ids, bsr_spmm, bsr_spmv  # noqa: F401
+from ..kernels.cache import precompute_stats  # noqa: F401
+from ..kernels.coo import coo_spmm, coo_spmv  # noqa: F401
+from ..kernels.csr import (  # noqa: F401
+    csr_row_ids,
+    csr_spmm,
+    csr_spmv,
+    csr_spmv_searchsorted,
+)
+from ..kernels.dia import (  # noqa: F401
+    dia_gather_tables,
+    dia_spmm,
+    dia_spmv,
+    dia_spmv_loop,
+)
+from ..kernels.ell import ell_spmm, ell_spmv, ell_spmv_loop  # noqa: F401
+from ..kernels.hybrid import (  # noqa: F401
+    hybrid_spmm,
+    hybrid_spmv,
+    hybrid_spmv_loop,
+)
+from ..kernels.jds import (  # noqa: F401
+    jds_segment_ids,
+    jds_spmm,
+    jds_spmv,
+    jds_spmv_loop,
+)
+from ..kernels.sell import (  # noqa: F401
+    sell_padded_views,
+    sell_spmm,
+    sell_spmm_padded,
+    sell_spmv,
+    sell_spmv_loop,
+    sell_spmv_padded,
+)
 from ..utils.hw import default_device
 from .formats import BSR, COO, CSR, DIA, ELL, JDS, SELL, HybridDIA
 
@@ -47,16 +85,7 @@ def _run(matrix, op: str, naive: bool, x, device) -> torch.Tensor:
         raise TypeError(f"no {op} for {type(matrix).__name__}")
     x = _operand(x, device)
     backend = "loop_reference" if naive and fmt in _NAIVE_LOOP else "torch"
-    cache = getattr(matrix, "_facade_fns", None)
-    if cache is None:
-        cache = {}
-        object.__setattr__(matrix, "_facade_fns", cache)
-    key = (op, backend, str(x.device))
-    fn = cache.get(key)
-    if fn is None:
-        ctx = R.KernelContext(device=x.device)
-        fn = cache[key] = R.build(matrix, fmt, op, backend, ctx).fn
-    return fn(x)
+    return R.container_fn(matrix, fmt, op, backend, x.device)(x)
 
 
 def spmv(matrix, x, *, device=None) -> torch.Tensor:

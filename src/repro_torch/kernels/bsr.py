@@ -21,7 +21,7 @@ from ..core.formats import BSR, _np
 from . import bsr_spmm as KP
 from .accum import acc_dtype
 from .cache import cached, register_stat
-from .registry import CompiledKernel, on_device, register_kernel
+from .registry import CompiledKernel, container_fn, on_device, register_kernel
 
 register_stat("bsr_block_row_ids")
 register_stat("bsr_bell_pack")
@@ -35,6 +35,16 @@ def bsr_block_row_ids(m: BSR) -> torch.Tensor:
         return torch.from_numpy(np.repeat(np.arange(len(brp) - 1), np.diff(brp)))
 
     return cached(m, "_block_row_ids", "bsr_block_row_ids", build)
+
+
+def bsr_spmv(m: BSR, x: torch.Tensor) -> torch.Tensor:
+    """The ``torch`` entry on x's device: block gather, per-block einsum,
+    ``index_add_`` over block rows."""
+    return container_fn(m, "bsr", "spmv", "torch", x.device)(x)
+
+
+def bsr_spmm(m: BSR, X: torch.Tensor) -> torch.Tensor:
+    return container_fn(m, "bsr", "spmm", "torch", X.device)(X)
 
 
 def bell_pack(m: BSR):

@@ -13,7 +13,7 @@ from ..core.formats import CSR, _np
 from . import csr_spmv as KP
 from .accum import acc_dtype
 from .cache import cached, register_stat, spmm_by_columns
-from .registry import CompiledKernel, on_device, register_kernel
+from .registry import CompiledKernel, container_fn, on_device, register_kernel
 
 register_stat("csr_row_ids")
 register_stat("csr_row_blocks")
@@ -45,8 +45,8 @@ def csr_spmm_plain(row_ptr, col_idx, val, scale, X, row_ids):
     return Y if scale is None else Y * scale.to(acc)[:, None]
 
 
-def csr_spmv_searchsorted(row_ptr, col_idx, val, scale, x):
-    """The naive oracle: row ids from a per-call searchsorted."""
+def csr_spmv_searchsorted_plain(row_ptr, col_idx, val, scale, x):
+    """The naive oracle on arrays: row ids from a per-call searchsorted."""
     nnz = col_idx.shape[0]
     row_ids = torch.searchsorted(
         row_ptr, torch.arange(nnz, dtype=row_ptr.dtype, device=row_ptr.device),
@@ -56,6 +56,22 @@ def csr_spmv_searchsorted(row_ptr, col_idx, val, scale, x):
     y = torch.zeros(row_ptr.shape[0] - 1, dtype=acc, device=x.device)
     y.index_add_(0, row_ids, prod)
     return y if scale is None else y * scale.to(acc)
+
+
+def csr_spmv(m: CSR, x: torch.Tensor) -> torch.Tensor:
+    """The ``torch`` entry on x's device: cached row ids, gather +
+    ``index_add_``, the per-row scale on the row sums."""
+    return container_fn(m, "csr", "spmv", "torch", x.device)(x)
+
+
+def csr_spmm(m: CSR, X: torch.Tensor) -> torch.Tensor:
+    return container_fn(m, "csr", "spmm", "torch", X.device)(X)
+
+
+def csr_spmv_searchsorted(m: CSR, x: torch.Tensor) -> torch.Tensor:
+    """The loop oracle on x's device: the row ids expanded by a
+    searchsorted on every call (the naive baseline)."""
+    return container_fn(m, "csr", "spmv", "loop_reference", x.device)(x)
 
 
 @register_kernel("csr", "spmv", "torch",
@@ -81,7 +97,7 @@ def _build_spmm(m: CSR, ctx) -> CompiledKernel:
 def _build_spmv_loop(m: CSR, ctx) -> CompiledKernel:
     rp, col, val, scale = on_device(ctx, m.row_ptr, m.col_idx, m.val, m.scale)
     return CompiledKernel(
-        lambda x: csr_spmv_searchsorted(rp, col, val, scale, x), "loop")
+        lambda x: csr_spmv_searchsorted_plain(rp, col, val, scale, x), "loop")
 
 
 @register_kernel("csr", "spmm", "loop_reference",
@@ -89,7 +105,7 @@ def _build_spmv_loop(m: CSR, ctx) -> CompiledKernel:
 def _build_spmm_loop(m: CSR, ctx) -> CompiledKernel:
     rp, col, val, scale = on_device(ctx, m.row_ptr, m.col_idx, m.val, m.scale)
     return CompiledKernel(spmm_by_columns(
-        lambda x: csr_spmv_searchsorted(rp, col, val, scale, x)), "loop")
+        lambda x: csr_spmv_searchsorted_plain(rp, col, val, scale, x)), "loop")
 
 
 def _check_indices(m: CSR) -> None:

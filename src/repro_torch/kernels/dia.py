@@ -2,15 +2,20 @@
 the CUDA SpMV of ``dia_spmv.py``."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.formats import DIA, _np
 from . import dia_spmv as KP
 from .accum import acc_dtype
 from .cache import cached, register_stat, spmm_by_columns
-from .registry import CompiledKernel, on_device, register_kernel
+from .registry import CompiledKernel, container_fn, on_device, register_kernel
 
 register_stat("dia_gather_index")
+register_stat("dia_gather_tables")
+
+#: integer dtype of each value width, for masking values as raw bits
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
 def dia_layout(m: DIA) -> tuple[int, int, int]:
@@ -27,6 +32,27 @@ def dia_gather_index(m: DIA) -> torch.Tensor:
                   lambda: KP.dia_gather_index(m.offsets, pad0, n))
 
 
+def dia_gather_tables(m: DIA):
+    """The reference's shift-gather tables, host-built once:
+    ``idx[k, i] = i + offsets[k]`` clipped into range (int32), and the
+    (nd, n) data zeroed where the shift runs off the matrix.  The port's
+    executors read a padded x instead (``dia_gather_index``)."""
+
+    def build():
+        n, ncols = m.shape
+        offs = torch.from_numpy(_np(m.offsets).astype(np.int64))
+        idx = torch.arange(n, dtype=torch.int64)[None, :] + offs[:, None]
+        valid = (idx >= 0) & (idx < ncols)
+        idx = idx.clamp(0, max(0, ncols - 1))
+        d = m.data.cpu()[:, :n]
+        # zeroed as raw bits (where takes no fp8); zero bits = 0.0
+        bits = _BITS[d.element_size()]
+        data = torch.where(valid, d.view(bits), torch.zeros((), dtype=bits)).view(d.dtype)
+        return idx.to(torch.int32), data
+
+    return cached(m, "_gather_tables", "dia_gather_tables", build)
+
+
 def dia_spmm_plain(data, scales, X_pad, n: int, idx):
     """Multi-vector DIA: one (nd, n, K) gather of the padded X, an einsum."""
     acc = acc_dtype(data.dtype, X_pad.dtype)
@@ -37,7 +63,7 @@ def dia_spmm_plain(data, scales, X_pad, n: int, idx):
     return torch.einsum("kn,knj->nj", d, G)
 
 
-def dia_spmv_loop(m_offsets: list, data, scales, x, n: int, ncols: int):
+def dia_spmv_loop_plain(m_offsets: list, data, scales, x, n: int, ncols: int):
     """One boundary-clipped shifted slice per diagonal, no padding: the
     per-diagonal oracle."""
     acc = acc_dtype(data.dtype, x.dtype)
@@ -51,6 +77,20 @@ def dia_spmv_loop(m_offsets: list, data, scales, x, n: int, ncols: int):
             contrib = contrib * scales[k].to(acc)
         y[lo:hi] += contrib
     return y
+
+
+def dia_spmv(m: DIA, x: torch.Tensor) -> torch.Tensor:
+    """The ``torch`` entry on x's device."""
+    return container_fn(m, "dia", "spmv", "torch", x.device)(x)
+
+
+def dia_spmm(m: DIA, X: torch.Tensor) -> torch.Tensor:
+    return container_fn(m, "dia", "spmm", "torch", X.device)(X)
+
+
+def dia_spmv_loop(m: DIA, x: torch.Tensor) -> torch.Tensor:
+    """The loop oracle on x's device: one clipped shifted slice a diagonal."""
+    return container_fn(m, "dia", "spmv", "loop_reference", x.device)(x)
 
 
 def _dia_operands(m: DIA, ctx):
@@ -89,7 +129,7 @@ def _loop_fn(m: DIA, ctx):
     data, scale = on_device(ctx, m.data, m.scale)
     offs = _np(m.offsets).tolist()
     n, ncols = m.shape
-    return lambda x: dia_spmv_loop(offs, data, scale, x, n, ncols)
+    return lambda x: dia_spmv_loop_plain(offs, data, scale, x, n, ncols)
 
 
 @register_kernel("dia", "spmv", "loop_reference",

@@ -11,7 +11,7 @@ import torch
 from ..core.formats import ELL
 from .accum import acc_dtype
 from .cache import spmm_by_columns
-from .registry import CompiledKernel, on_device, register_kernel
+from .registry import CompiledKernel, container_fn, on_device, register_kernel
 
 
 def ell_spmv_plain(col, val, scale, x):
@@ -30,13 +30,27 @@ def ell_spmm_plain(col, val, scale, X):
     return Y if scale is None else Y * scale.to(acc)[:, None]
 
 
-def ell_spmv_loop(col, val, scale, x):
+def ell_spmv_loop_plain(col, val, scale, x):
     """One pass per padded jagged column (host loop over W): the oracle."""
     acc = acc_dtype(val.dtype, x.dtype)
     y = torch.zeros(col.shape[0], dtype=acc, device=x.device)
     for j in range(col.shape[1]):
         y = y + val[:, j].to(acc) * x.to(acc)[col[:, j].long()]
     return y if scale is None else y * scale.to(acc)
+
+
+def ell_spmv(m: ELL, x: torch.Tensor) -> torch.Tensor:
+    """The ``torch`` entry on x's device."""
+    return container_fn(m, "ell", "spmv", "torch", x.device)(x)
+
+
+def ell_spmm(m: ELL, X: torch.Tensor) -> torch.Tensor:
+    return container_fn(m, "ell", "spmm", "torch", X.device)(X)
+
+
+def ell_spmv_loop(m: ELL, x: torch.Tensor) -> torch.Tensor:
+    """The loop oracle on x's device."""
+    return container_fn(m, "ell", "spmv", "loop_reference", x.device)(x)
 
 
 def _operands(m: ELL, ctx):
@@ -59,12 +73,12 @@ def _build_spmm(m: ELL, ctx) -> CompiledKernel:
                  description="per-jagged-column traversal oracle")
 def _build_spmv_loop(m: ELL, ctx) -> CompiledKernel:
     col, val, scale = _operands(m, ctx)
-    return CompiledKernel(lambda x: ell_spmv_loop(col, val, scale, x), "loop")
+    return CompiledKernel(lambda x: ell_spmv_loop_plain(col, val, scale, x), "loop")
 
 
 @register_kernel("ell", "spmm", "loop_reference",
                  description="column-by-column jagged-traversal oracle")
 def _build_spmm_loop(m: ELL, ctx) -> CompiledKernel:
     col, val, scale = _operands(m, ctx)
-    return CompiledKernel(spmm_by_columns(lambda x: ell_spmv_loop(col, val, scale, x)),
-                          "loop")
+    return CompiledKernel(
+        spmm_by_columns(lambda x: ell_spmv_loop_plain(col, val, scale, x)), "loop")

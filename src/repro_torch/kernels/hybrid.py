@@ -12,7 +12,21 @@ from ..core.formats import HybridDIA
 from . import dia as KD
 from . import sell as KS
 from .cache import spmm_by_columns
-from .registry import CompiledKernel, register_kernel
+from .registry import CompiledKernel, container_fn, register_kernel
+
+
+def hybrid_spmv(m: HybridDIA, x):
+    """The ``torch`` entry on x's device: DIA part + SELL rest."""
+    return container_fn(m, "hybrid", "spmv", "torch", x.device)(x)
+
+
+def hybrid_spmm(m: HybridDIA, X):
+    return container_fn(m, "hybrid", "spmm", "torch", X.device)(X)
+
+
+def hybrid_spmv_loop(m: HybridDIA, x):
+    """The loop oracles of the two parts, added."""
+    return container_fn(m, "hybrid", "spmv", "loop_reference", x.device)(x)
 
 
 def _compose(build_dia, build_sell, m: HybridDIA, ctx, label: str):

@@ -13,7 +13,7 @@ import torch
 from ..core.formats import JDS, _np
 from .accum import acc_dtype
 from .cache import cached, register_stat, spmm_by_columns
-from .registry import CompiledKernel, on_device, register_kernel
+from .registry import CompiledKernel, container_fn, on_device, register_kernel
 
 register_stat("jds_segment_ids")
 
@@ -44,7 +44,7 @@ def jds_spmm_plain(col, val, scale, perm, X, seg, n_rows: int):
                        ).index_copy_(0, perm[:n_rows].long(), Yp[:n_rows])
 
 
-def jds_spmv_loop(jd_ptr: list, col, val, scale, perm, x, n_rows: int):
+def jds_spmv_loop_plain(jd_ptr: list, col, val, scale, perm, x, n_rows: int):
     """One pass per jagged diagonal (the paper's outer loop): the oracle."""
     acc = acc_dtype(val.dtype, x.dtype)
     yp = torch.zeros(perm.shape[0], dtype=acc, device=x.device)
@@ -56,6 +56,20 @@ def jds_spmv_loop(jd_ptr: list, col, val, scale, perm, x, n_rows: int):
     y = torch.zeros(n_rows, dtype=acc, device=x.device)
     y[perm[:n_rows].long()] = yp[:n_rows]
     return y
+
+
+def jds_spmv(m: JDS, x: torch.Tensor) -> torch.Tensor:
+    """The ``torch`` entry on x's device."""
+    return container_fn(m, "jds", "spmv", "torch", x.device)(x)
+
+
+def jds_spmm(m: JDS, X: torch.Tensor) -> torch.Tensor:
+    return container_fn(m, "jds", "spmm", "torch", X.device)(X)
+
+
+def jds_spmv_loop(m: JDS, x: torch.Tensor) -> torch.Tensor:
+    """The loop oracle on x's device."""
+    return container_fn(m, "jds", "spmv", "loop_reference", x.device)(x)
 
 
 def _operands(m: JDS, ctx):
@@ -86,7 +100,7 @@ def _build_spmm(m: JDS, ctx) -> CompiledKernel:
 def _loop_fn(m: JDS, ctx):
     col, val, scale, perm = _operands(m, ctx)
     jp, n = _np(m.jd_ptr).tolist(), m.shape[0]
-    return lambda x: jds_spmv_loop(jp, col, val, scale, perm, x, n)
+    return lambda x: jds_spmv_loop_plain(jp, col, val, scale, perm, x, n)
 
 
 @register_kernel("jds", "spmv", "loop_reference",

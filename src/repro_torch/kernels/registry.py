@@ -210,6 +210,22 @@ def build(matrix, format: str, op: str, backend: str,
     return entry.build(matrix, ctx)
 
 
+def container_fn(matrix, format: str, op: str, backend: str, device) -> Callable:
+    """The callable of an explicit entry for ``matrix`` on ``device``, built
+    once per (op, backend, device) and kept on the container: what the
+    per-format functions (``csr_spmv(m, x)``, ...) and ``core.spmv`` run."""
+    cache = getattr(matrix, "_facade_fns", None)
+    if cache is None:
+        cache = {}
+        object.__setattr__(matrix, "_facade_fns", cache)
+    key = (op, backend, str(device))
+    fn = cache.get(key)
+    if fn is None:
+        fn = cache[key] = build(matrix, format, op, backend,
+                                KernelContext(device=device)).fn
+    return fn
+
+
 def select_backend(matrix, format: str, op: str,
                    ctx: KernelContext | None = None) -> tuple[str, dict]:
     """``backend="auto"``: probe every eligible entry and memoize the pick

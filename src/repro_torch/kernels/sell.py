@@ -19,7 +19,7 @@ from ..core.formats import SELL, _np
 from . import sell_spmv as KP
 from .accum import acc_dtype
 from .cache import cached, register_stat, spmm_by_columns
-from .registry import CompiledKernel, KernelContext, on_device, register_kernel
+from .registry import CompiledKernel, KernelContext, container_fn, on_device, register_kernel
 
 register_stat("sell_segment_ids")
 register_stat("sell_padded_views")
@@ -51,12 +51,13 @@ def sell_chunk_blocks(m: SELL) -> KP.ChunkBlocks:
                   lambda: KP.sell_chunk_blocks(_np(m.chunk_ptr), _np(m.chunk_width), m.C))
 
 
-def padded_views(m: SELL) -> tuple[torch.Tensor, torch.Tensor]:
+def padded_views(m: SELL, pad_width_to: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """The globally padded (nc, W_max, C) column and value views of the
-    flat layout (zero padding), as the reference's ``SELL.padded_views``."""
+    flat layout (zero padding; W_max rounded up to a multiple of
+    ``pad_width_to``), as the reference's ``SELL.padded_views``."""
     cp, cw = _np(m.chunk_ptr), _np(m.chunk_width).astype(np.int64)
     nc, C = m.n_chunks, m.C
-    wmax = max(1, int(cw.max()) if cw.size else 1)
+    wmax = max(1, -(-int(cw.max() if cw.size else 1) // pad_width_to) * pad_width_to)
     chunk_of = np.repeat(np.arange(nc), cw * C)
     pos = np.arange(int(cp[-1])) - cp[chunk_of]
     dest = torch.from_numpy(chunk_of * wmax * C + pos)
@@ -68,9 +69,12 @@ def padded_views(m: SELL) -> tuple[torch.Tensor, torch.Tensor]:
     return col.reshape(nc, wmax, C), val.reshape(nc, wmax, C)
 
 
-def sell_padded_views(m: SELL):
-    """``padded_views`` built once per container."""
-    return cached(m, "_padded_views", "sell_padded_views", lambda: padded_views(m))
+def sell_padded_views(m: SELL, pad_width_to: int = 1):
+    """``(col3, val3, chunk widths)``: ``padded_views`` and the per-chunk
+    widths, built once per container and ``pad_width_to``."""
+    attr = "_padded_views" if pad_width_to == 1 else f"_padded_views_{pad_width_to}"
+    return cached(m, attr, "sell_padded_views",
+                  lambda: (*padded_views(m, pad_width_to), m.chunk_width.cpu()))
 
 
 def inverse_perm(m: SELL) -> torch.Tensor | None:
@@ -85,35 +89,37 @@ def inverse_perm(m: SELL) -> torch.Tensor | None:
     return torch.from_numpy(inv)
 
 
-def sell_spmv_padded(col3, val3, inv, x, n_rows: int, scale=None):
+def sell_spmv_padded(col3, val3, perm, x, n_rows: int, scale=None):
     """SpMV on the padded views: one (nc, W, C) gather, a sum over W, the
-    per-chunk scale and the inverse-permutation gather."""
+    per-chunk scale and the un-permute.  ``perm`` is the *inverse* row
+    permutation (``inverse_perm``), applied as a gather; ``None`` means the
+    natural row order (a slice)."""
     acc = acc_dtype(val3.dtype, x.dtype)
     g = x.index_select(0, col3.reshape(-1)).reshape(col3.shape).to(acc)
     tiles = (val3.to(acc) * g).sum(1)
     if scale is not None:
         tiles = tiles * scale.to(acc)[:, None]
     flat = tiles.reshape(-1)
-    return flat[:n_rows] if inv is None else flat[inv]
+    return flat[:n_rows] if perm is None else flat[perm]
 
 
-def sell_spmm_padded(col3, val3, inv, X, n_rows: int, scale=None):
+def sell_spmm_padded(col3, val3, perm, X, n_rows: int, scale=None):
     """Multi-vector ``sell_spmv_padded``: an (nc, W, C, K) gather and an
-    einsum over W."""
+    einsum over W; ``perm`` as there."""
     acc = acc_dtype(val3.dtype, X.dtype)
     g = X.index_select(0, col3.reshape(-1)).reshape(col3.shape + (X.shape[1],)).to(acc)
     tiles = torch.einsum("nwc,nwck->nck", val3.to(acc), g)
     if scale is not None:
         tiles = tiles * scale.to(acc)[:, None, None]
     flat = tiles.reshape(-1, X.shape[1])
-    return flat[:n_rows] if inv is None else flat[inv]
+    return flat[:n_rows] if perm is None else flat[perm]
 
 
 def _operands(m: SELL, ctx):
     return on_device(ctx, m.chunk_ptr, m.chunk_width, m.col_idx, m.val, m.scale, m.perm)
 
 
-def sell_spmv_loop(m: SELL, ctx: KernelContext):
+def _loop_fn(m: SELL, ctx: KernelContext):
     """The chunk-local slab traversal (host loop over chunks): the oracle."""
     cp, cw = _np(m.chunk_ptr).tolist(), _np(m.chunk_width).tolist()
     C, n = m.C, m.shape[0]
@@ -137,6 +143,21 @@ def sell_spmv_loop(m: SELL, ctx: KernelContext):
     return fn
 
 
+def sell_spmv(m: SELL, x: torch.Tensor) -> torch.Tensor:
+    """The ``torch`` entry on x's device (flat or padded form, as the model
+    prices it for the H100)."""
+    return container_fn(m, "sell", "spmv", "torch", x.device)(x)
+
+
+def sell_spmm(m: SELL, X: torch.Tensor) -> torch.Tensor:
+    return container_fn(m, "sell", "spmm", "torch", X.device)(X)
+
+
+def sell_spmv_loop(m: SELL, x: torch.Tensor) -> torch.Tensor:
+    """The loop oracle on x's device: the chunk-local slab traversal."""
+    return container_fn(m, "sell", "spmv", "loop_reference", x.device)(x)
+
+
 def _build_torch(m: SELL, ctx, flat_fn, padded_fn) -> CompiledKernel:
     """The ``torch`` executor: flat or padded, as the model prices it for
     the context's chip."""
@@ -146,7 +167,7 @@ def _build_torch(m: SELL, ctx, flat_fn, padded_fn) -> CompiledKernel:
         (seg,) = on_device(ctx, sell_segment_ids(m))
         return CompiledKernel(lambda x: flat_fn(cp, cw, col, val, scale, perm, x,
                                                 n, C, seg), "torch")
-    col3, val3, inv, scale = on_device(ctx, *sell_padded_views(m), inverse_perm(m),
+    col3, val3, inv, scale = on_device(ctx, *sell_padded_views(m)[:2], inverse_perm(m),
                                        m.scale)
     return CompiledKernel(lambda x: padded_fn(col3, val3, inv, x, n, scale), "torch")
 
@@ -168,13 +189,13 @@ def _build_spmm(m: SELL, ctx) -> CompiledKernel:
 @register_kernel("sell", "spmv", "loop_reference",
                  description="chunk-local slab traversal (oracle)")
 def _build_spmv_loop(m: SELL, ctx) -> CompiledKernel:
-    return CompiledKernel(sell_spmv_loop(m, ctx), "loop")
+    return CompiledKernel(_loop_fn(m, ctx), "loop")
 
 
 @register_kernel("sell", "spmm", "loop_reference",
                  description="column-by-column slab traversals")
 def _build_spmm_loop(m: SELL, ctx) -> CompiledKernel:
-    return CompiledKernel(spmm_by_columns(sell_spmv_loop(m, ctx)), "loop")
+    return CompiledKernel(spmm_by_columns(_loop_fn(m, ctx)), "loop")
 
 
 def _check_indices(m: SELL) -> None:

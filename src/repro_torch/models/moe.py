@@ -80,27 +80,35 @@ def _moe_dispatch_group(p: MoE, xf: torch.Tensor, cfg: MoEConfig, C: int, comput
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
 
     # aux losses (load balance + router z)
+    flat_e = tope.reshape(-1)
+    # per-expert counts with a static shape (no bincount), so that the step
+    # also runs on the meta device
+    counts = torch.zeros(E, dtype=flat_e.dtype, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     me = probs.mean(dim=0)
-    ce = torch.bincount(tope.reshape(-1), minlength=E).float() / (Tg * K)
+    ce = counts.float() / (Tg * K)
     aux_loss = cfg.aux_loss_coef * E * torch.sum(me * ce)
     router_z = cfg.router_z_loss * torch.logsumexp(logits, dim=-1).square().mean()
 
     # capacity-bounded sort dispatch
-    flat_e = tope.reshape(-1)
     flat_w = topw.reshape(-1)
     flat_t = torch.arange(Tg, device=dev).repeat_interleave(K)
     order = torch.argsort(flat_e, stable=True)
     e_s, t_s, w_s = flat_e[order], flat_t[order], flat_w[order]
-    counts = torch.bincount(flat_e, minlength=E)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(Tg * K, device=dev) - starts[e_s]
     keep = pos < C
     # the reference's slot C - 1 of an overflowing expert: the pad sentinel
     held = keep & ~((counts[e_s] > C) & (pos == C - 1))
-    idx = torch.full((E, C), Tg, dtype=torch.long, device=dev)      # Tg = pad sentinel
-    idx[e_s[held], pos[held]] = t_s[held]
-    wmat = torch.zeros((E, C), dtype=torch.float32, device=dev)
-    wmat[e_s[held], pos[held]] = w_s[held]
+    # every entry is written, the ones not held into a spare slot C that is
+    # cut off: no boolean index, so no data-dependent shape
+    slot = torch.where(held, pos, C)
+    idx = torch.full((E, C + 1), Tg, dtype=torch.long, device=dev)  # Tg = pad sentinel
+    idx[e_s, slot] = t_s
+    idx = idx[:, :C]
+    wmat = torch.zeros((E, C + 1), dtype=torch.float32, device=dev)
+    wmat[e_s, slot] = w_s
+    wmat = wmat[:, :C]
 
     x_pad = torch.cat([xc, torch.zeros((1, D), dtype=compute_dtype, device=dev)])
     x_e = x_pad[idx]                                                  # (E, C, D)
