@@ -180,6 +180,33 @@ repository configures:
    989 TFLOP/s; (c) one ``decode_32k`` step at B = 1 against a 32,768-token
    cache: finite logits, its counted bytes beside params + cache and their
    time at 3.35 TB/s, and its device ms.
+17. the examples at the paper's scale: each ``repro_torch.examples``
+   module's ``main()`` in-process on the card, the launch counters read
+   around it: (a) ``quickstart --n 1201200``: the advised plan through its
+   CUDA kernels once an SpMV (y, then 48 Lanczos steps), ``plan(x)`` within
+   ``TOL`` of a host f64 product, the alphas and betas within 1e-6 (of
+   their max) of a ``torch``-entry run from the same v0; (b)
+   ``eigensolver_holstein --n 1201200 --lanczos-steps 64``: the exact L = 3
+   E0 against dense ``eigvalsh`` (1e-5), each of the five formats' plans
+   against a host f64 product and its GFLOP/s, the kernels once a call, the
+   winner's E0 against a ``torch``-entry run (1e-6 relative), the SpMV
+   share of the Lanczos time, the distributed plan (one shard a card)
+   within 1e-5 of the serial plan, kernel 1 once a slab; (c)
+   ``matrix_free_laplacian --nx EX_NX`` (1,404,928 rows): ``materialize``
+   bitwise, kernel 4 once an SpMV and kernel 3 once a call, the card's
+   STREAM calibration (kernel 8) made anew, the measured against the
+   modelled B/nnz, the two plans within 1e-5; (d) ``distributed_spmv --n
+   1201200``: every variant within 1e-5 of the CSR product, kernel 1 once a
+   non-empty slab a call; (e) ``serve_sparse --full``: Qwen3-0.6B's layer-0
+   gate (3072 x 1024) at 25 % in (8, 128) blocks through its kernel (6, or
+   5) once and nothing else on the path, within 1e-5 of dense, the engine's
+   wave twice with equal tokens; (f) ``serving_load --n 1201200``: kernel 5
+   once a flush and nothing else, every future within ``TOL`` of
+   ``plan(x)``, the reference's two assertions, each run's wall-clock
+   req/s; (g) ``train_lm --steps EX_TRAIN_STEPS`` (the ~100M config, cut
+   from 300; its checkpoints under ``build/`` deleted after): every logged
+   loss finite, the last below the first, no counted kernel, wall ms a step
+   and tokens/s.
 
 Phase 7 ends with the measured warm path: every timed candidate of its
 seven matrices recorded into a ``core.tunedb.TuneDB`` (keyed by signature,
@@ -190,8 +217,9 @@ tuning=db)``, to the measured fastest format; ``fit_efficiency_from_db`` is
 logged beside the committed ``h100`` table.
 
 It prints a ``kernels`` JSON line (with each kernel's launches on the
-serving, the distributed and the LM paths; the training path of phase 15
-and the steps of phase 16 launch none of them) before the last line and ends with
+serving, the distributed, the LM and the examples' paths; the training path
+of phase 15 and the steps of phase 16 launch none of them) before the last
+line and ends with
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
 exits non-zero; without CUDA, or without the repository beside it, it
 prints no result and exits non-zero.
@@ -202,6 +230,7 @@ import argparse
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1150,6 +1179,281 @@ def dryrun_phase(torch, dev, smi: str, sweep) -> dict:
     dr["phase_s"] = time.perf_counter() - t16
     log(f"[dryrun] phase 16 took {dr['phase_s']:.1f} s")
     return dr
+
+
+#: phase 17: the 3-D Laplacian's side (112^3 = 1,404,928 rows) and the
+#: ~100M training run's steps (cut from the example's 300)
+EX_NX = 112
+EX_TRAIN_STEPS = 60
+
+#: the CUDA kernels a plan of each format launches once a call
+FORMAT_KERNELS = {"csr": ("csr_spmv",), "sell": ("sell_spmv",),
+                  "hybrid": ("dia_spmv", "sell_spmv"), "matrix_free": ("mf_spmv",)}
+
+
+def examples_phase(torch, dev, smi: str, n: int) -> dict:
+    """Phase 17, the ``repro_torch.examples`` at the paper's scale
+    (the module docstring lists its checks).  Each ``main()`` runs with the
+    launch counters set to 0 just before it and read just after; the counts
+    it must show are derived from the calls the example makes.  Returns the
+    phase's record, ``launches`` summed over the examples."""
+    from repro_torch.core import formats as F
+    from repro_torch.core import microbench as MB
+    from repro_torch.core.eigensolver import lanczos
+    from repro_torch.core.plan import SpMVPlan
+    from repro_torch.core.planconfig import PlanConfig
+    from repro_torch.examples import (distributed_spmv, eigensolver_holstein,
+                                      matrix_free_laplacian, quickstart, serve_sparse,
+                                      serving_load, train_lm)
+    from repro_torch.kernels import cuda_build as CB
+
+    t17 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False   # dense f32 references in full f32
+    devarg = ["--device", str(dev)]
+    ex = {"launches": {}}
+
+    def run(name, mod, argv):
+        """``mod.main(argv)`` between two reads of the launch counters:
+        (result, counts, host seconds)."""
+        CB.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = mod.main(argv + devarg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: v for k, v in CB.launch_counts().items() if v}
+        for k, v in counts.items():
+            ex["launches"][k] = ex["launches"].get(k, 0) + v
+        log(f"[examples] {name} {' '.join(argv)}: {secs:.1f} s, launches {counts}")
+        return res, counts, secs
+
+    def expect(counts, want, what):
+        got = {k: v for k, v in counts.items() if k in CB.KERNELS}
+        check(got == {k: v for k, v in want.items() if v},
+              f"{what}: counted launches {got}, expected {want}")
+
+    def host_product(m, x):
+        """The f64 product m @ x of a CSR container on the host."""
+        rp, ci = F._np(m.row_ptr).astype(np.int64), F._np(m.col_idx)
+        rows = np.repeat(np.arange(m.shape[0]), np.diff(rp))
+        xv = x.detach().double().cpu().numpy()
+        return torch.from_numpy(np.bincount(rows, weights=F._np(m.val).astype(np.float64)
+                                            * xv[ci], minlength=m.shape[0]))
+
+    def against_host(what, y, want):
+        _, rel = rel_err(torch, y.cpu(), want)
+        tol = TOL[str(y.dtype).removeprefix("torch.")]
+        check(bool(torch.isfinite(y).all()) and rel <= tol,
+              f"{what}: {rel:.3e} from the host f64 product (bound {tol:g})")
+        return rel
+
+    def normwise(a, b) -> float:
+        return float(np.max(np.abs(a - b)) / max(1e-300, np.max(np.abs(b))))
+
+    def slabs(plan) -> int:
+        return sum(op is not None for row in plan.operands for op in row)
+
+    def tally(plan, calls, want):
+        for k in FORMAT_KERNELS.get(plan.report.format, ()) if plan.report.kernel == "cuda" \
+                else ():
+            want[k] = want.get(k, 0) + calls
+
+    # 17a. quickstart: advisor -> plan -> SpMV -> 48 Lanczos steps
+    qs, counts, secs = run("quickstart", quickstart, ["--n", str(n)])
+    plan = qs["plan"]
+    check(plan.report.kernel == "cuda", f"quickstart: the plan runs {plan.report.kernel}")
+    want = {}
+    tally(plan, 1 + qs["lanczos"].n_spmv, want)
+    expect(counts, want, "quickstart")
+    rel_y = against_host("quickstart plan(x)", qs["y"], host_product(qs["matrix"], qs["x"]))
+    ref = lanczos(SpMVPlan.compile(plan.matrix, PlanConfig(backend="torch", device=dev)), n, m=48,
+                  dtype=torch.float32)
+    da, db = normwise(qs["lanczos"].alphas, ref.alphas), normwise(qs["lanczos"].betas, ref.betas)
+    check(qs["lanczos"].alphas.shape == ref.alphas.shape and da <= 1e-6 and db <= 1e-6,
+          f"quickstart: Lanczos through the kernels differs from the torch entry "
+          f"(alpha {da:.2e}, beta {db:.2e} of their max)")
+    ex["quickstart"] = {"s": secs, "best": qs["best"], "format": plan.report.format,
+                        "launches": counts, "rel_err": rel_y, "e0": qs["e0"],
+                        "alpha_rel_diff": da, "beta_rel_diff": db}
+    log(f"[examples] quickstart: advisor -> {qs['best']}, plan {plan.report.format}/"
+        f"{plan.report.kernel}, plan(x) {rel_y:.2e} from f64; E0 {qs['e0']:.6f}; "
+        f"vs torch entry alpha {da:.1e}, beta {db:.1e}")
+    del qs, plan, ref
+
+    # 17b. eigensolver_holstein: exact check, shoot-out, Lanczos, distributed
+    eg, counts, secs = run("eigensolver_holstein", eigensolver_holstein,
+                           ["--n", str(n), "--lanczos-steps", "64"])
+    exact = eg["exact"]
+    check(abs(exact["e0"] - exact["e_dense"]) <= 1e-5,
+          f"exact L = 3: E0 {exact['e0']!r} vs dense {exact['e_dense']!r}")
+    y_host = host_product(eg["matrix"], eg["x"])
+    want, fmts = {}, {}
+    for name, row in eg["shootout"].items():
+        tally(row["plan"], eigensolver_holstein.ITERS + 1, want)
+        fmts[name] = {"ms": row["seconds"] * 1e3, "gflops": row["gflops"],
+                      "kernel": row["kernel"], "convert_s": row["convert_s"],
+                      "rel_err": against_host(f"eigensolver {name} plan(x)",
+                                              row["plan"](eg["x"]), y_host)}
+    best = eg["shootout"][eg["best"]]["plan"]
+    tally(best, eg["lanczos"].n_spmv + 1, want)  # the solve, and y_serial
+    want["sell_spmv"] = want.get("sell_spmv", 0) + slabs(eg["dist"]) * (
+        eg["dist"].slab_backend == "cuda")
+    expect(counts, want, "eigensolver_holstein")
+    ref = lanczos(SpMVPlan.compile(best.matrix, PlanConfig(backend="torch", device=dev)), n,
+                  m=64,
+                  dtype=torch.float32)
+    de0 = abs(eg["e0"] - float(ref.eigenvalues[0])) / abs(float(ref.eigenvalues[0]))
+    check(de0 <= 1e-6, f"eigensolver: the winner's E0 {eg['e0']!r} vs the torch entry's "
+                       f"{float(ref.eigenvalues[0])!r}")
+    check(eg["dist_rel_err"] <= 1e-5, f"eigensolver: distributed plan {eg['dist_rel_err']:.2e} "
+                                      "from the serial plan")
+    ex["eigensolver_holstein"] = {
+        "s": secs, "exact": exact, "formats": fmts, "best": eg["best"], "launches": counts,
+        "e0": eg["e0"], "e0_rel_diff_vs_torch": de0, "lanczos_s": eg["lanczos_s"],
+        "spmv_share": eg["spmv_share"], "dist_parts": eg["dist"].parts,
+        "dist_rel_err": eg["dist_rel_err"]}
+    log(f"[examples] eigensolver_holstein at N={n}: " + ", ".join(
+        f"{k} {v['gflops']:.2f} GFLOP/s ({v['ms']:.4f} ms, {v['kernel']}, converted "
+        f"{v['convert_s']:.2f} s)" for k, v in fmts.items()) + f"; winner {eg['best']}: "
+        f"E0 {eg['e0']:.6f} in {eg['lanczos_s']:.3f} s, SpMV share "
+        f"{100 * eg['spmv_share']:.1f} %; distributed {eg['dist'].parts} shard(s) "
+        f"{eg['dist_rel_err']:.1e} from serial; card: {smi}")
+    del eg, best, ref, y_host
+
+    # 17c. matrix_free_laplacian: the card calibrates anew, as a user's
+    # process does (card_chip() measures through kernel 8)
+    MB._CAL.clear()
+    mf, counts, secs = run("matrix_free_laplacian", matrix_free_laplacian,
+                           ["--nx", str(EX_NX)])
+    check(torch.equal(F.materialize(mf["op"]).val, mf["matrix"].val),
+          "matrix_free: materialize is not bitwise the assembled CSR")
+    calls = {"csr": mf["iters"] + 2, "matrix_free": mf["iters"] + 2 + mf["lanczos"].n_spmv}
+    want = {}
+    for k, p_ in mf["plans"].items():
+        tally(p_, calls[k], want)
+    check(counts.get("stream_triad", 0) > 0, "matrix_free: card_chip() did not calibrate")
+    want["stream_triad"] = counts.get("stream_triad", 0)
+    expect(counts, want, "matrix_free_laplacian")
+    check(mf["parity_rel_err"] <= 1e-5, f"matrix_free vs csr plan: {mf['parity_rel_err']:.2e}")
+    ex["matrix_free_laplacian"] = {
+        "s": secs, "rows": mf["matrix"].shape[0], "nnz": mf["matrix"].nnz,
+        "launches": counts, "model_bytes_per_nnz": mf["bytes_per_nnz"],
+        "moved_bytes_per_nnz": mf["moved_per_nnz"],
+        "ms": {k: v * 1e3 for k, v in mf["seconds"].items()},
+        "triad_bytes_per_s": mf["chip"].hbm_bytes_per_s, "rel_err": mf["parity_rel_err"],
+        "e0": mf["e0"], "lanczos_s": mf["lanczos_s"]}
+    rec = ex["matrix_free_laplacian"]
+    log(f"[examples] matrix_free_laplacian {EX_NX}^3 ({rec['rows']:,} rows): csr "
+        f"{rec['ms']['csr']:.4f} ms = {rec['moved_bytes_per_nnz']['csr']:.2f} B/nnz (model "
+        f"{rec['model_bytes_per_nnz']['csr']:.2f}), matrix_free {rec['ms']['matrix_free']:.4f} "
+        f"ms = {rec['moved_bytes_per_nnz']['matrix_free']:.2f} B/nnz (model "
+        f"{rec['model_bytes_per_nnz']['matrix_free']:.2f}) at the triad rate "
+        f"{rec['triad_bytes_per_s'] / 1e12:.4f} TB/s; E0 {mf['e0']:.6f}")
+    del mf
+
+    # 17d. distributed_spmv: the three variants, one shard a visible card
+    ds, counts, secs = run("distributed_spmv", distributed_spmv, ["--n", str(n)])
+    want = {"sell_spmv": 0}
+    for v, row in ds["variants"].items():
+        check(row["rel_err"] <= 1e-5, f"distributed_spmv {v}: {row['rel_err']:.2e} from csr")
+        if row["plan"].slab_backend == "cuda":
+            want["sell_spmv"] += slabs(row["plan"]) * (distributed_spmv.ITERS + 1
+                                                       + 60 * (v == "overlap"))
+    expect(counts, want, "distributed_spmv")
+    ex["distributed_spmv"] = {
+        "s": secs, "shards": len(ds["mesh"].devices), "launches": counts, "e0": ds["e0"],
+        "variants": {v: {"ms": r["seconds"] * 1e3, "rel_err": r["rel_err"],
+                         "slab": r["plan"].slab_format, "backend": r["plan"].slab_backend}
+                     for v, r in ds["variants"].items()}}
+    log(f"[examples] distributed_spmv at N={n}, {len(ds['mesh'].devices)} shard(s): " +
+        ", ".join(f"{v} {r['ms']:.4f} ms ({r['slab']}/{r['backend']}, {r['rel_err']:.1e})"
+                  for v, r in ex["distributed_spmv"]["variants"].items()) +
+        f"; E0 {ds['e0']:.6f}")
+    del ds
+
+    # 17e. serve_sparse --full: Qwen3-0.6B's gate through its kernel, then
+    # the engine
+    sv, counts, secs = run("serve_sparse", serve_sparse, ["--full"])
+    gate = sv["gate"]
+    kname = "bell_spmm" if gate["layer"].fmt == "bsr" else "sell_spmm"
+    check(gate["w_sparse"].shape == (3072, 1024), f"serve_sparse: gate {gate['w_sparse'].shape}")
+    expect(counts, {kname: 1}, "serve_sparse")
+    check(gate["rel_err"] <= 1e-5, f"serve_sparse: layer {gate['rel_err']:.2e} from dense")
+    wave = sv["engine"].generate(sv["prompts"], sv["gen_cfg"])
+    check(wave == sv["outs"] and all(len(o) == 12 for o in wave),
+          f"serve_sparse: a second wave gave {wave}, the first {sv['outs']}")
+    ex["serve_sparse"] = {"s": secs, "fmt": gate["layer"].fmt, "kernel": kname,
+                          "launches": counts, "rel_err": gate["rel_err"],
+                          "streamed_bytes": gate["streamed_bytes"], "tokens": sv["outs"],
+                          "decode_bytes_per_token": sv["decode_bytes_per_token"]}
+    log(f"[examples] serve_sparse --full: gate {gate['report']['advised_format']} -> "
+        f"{kname} once, {gate['rel_err']:.1e} from dense, {gate['streamed_bytes'] / 1e6:.3f} "
+        f"MB/SpMV; two waves equal; {sv['decode_bytes_per_token'] / 1e9:.4f} GB a token")
+    del sv, gate
+    torch.cuda.empty_cache()
+
+    # 17f. serving_load: heavy and thin open-loop traffic through kernel 5
+    sl, counts, secs = run("serving_load", serving_load, ["--n", str(n)])
+    runs = {"heavy": sl["heavy"], "thin": sl["thin"]}
+    check(all(r["width"] > 1 for r in runs.values()), "serving_load: width 1 serves no SpMM")
+    expect(counts, {"sell_spmm": sum(r["stats"]["batches"] for r in runs.values())},
+           "serving_load")
+    for name, r in runs.items():
+        plan = r["server"].plan(name)
+        worst = max(rel_err(torch, f.result(), plan(x))[1]
+                    for f, x in zip(r["futures"], sl["xs"]))
+        check(worst <= TOL["float32"], f"serving_load {name}: a future {worst:.2e} from plan(x)")
+        r["worst_rel_err"] = worst
+    check(runs["heavy"]["stats"]["mean_batch_width"] > runs["thin"]["stats"]["mean_batch_width"]
+          and runs["thin"]["stats"]["padding_ratio"] > runs["heavy"]["stats"]["padding_ratio"],
+          "serving_load: the reference's assertions")
+    # the heavy run again on the same container, its SpMM operand already
+    # derived: the example's rate is a cold server's
+    warm = serving_load.run_load("heavy", 50_000, 240, 2e-3, sl["matrix"], sl["xs"],
+                                 device=dev)
+    ex["serving_load"] = {"s": secs, "launches": counts, **{
+        name: {k: r["stats"][k] for k in ("requests", "batches", "mean_batch_width",
+                                          "padding_ratio", "batch_width")}
+        | {"p50_ms": r["p50"] * 1e3, "p95_ms": r["p95"] * 1e3, "wall_s": r["wall_s"],
+           "req_per_s": r["req_per_s"], "worst_rel_err": r["worst_rel_err"]}
+        for name, r in runs.items()}, "heavy_again_req_per_s": warm["req_per_s"]}
+    log("[examples] serving_load at N=%d: " % n + "; ".join(
+        f"{k} width {v['batch_width']}, {v['batches']} flushes, mean {v['mean_batch_width']:.2f},"
+        f" padding {v['padding_ratio']:.2f}, p50/p95 {v['p50_ms']:.2f}/{v['p95_ms']:.2f} ms "
+        f"(virtual), {v['req_per_s']:.0f} req/s wall" for k, v in ex["serving_load"].items()
+        if k in runs) + f"; heavy again {warm['req_per_s']:.0f} req/s wall; card: {smi}")
+    del sl, runs, warm
+    torch.cuda.empty_cache()
+
+    # 17g. train_lm: the ~100M config, EX_TRAIN_STEPS steps
+    ckpt = REPO / "build" / "train_lm_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        tr, counts, secs = run("train_lm", train_lm, ["--steps", str(EX_TRAIN_STEPS),
+                                                     "--ckpt-dir", str(ckpt)])
+        ckpt_steps = sorted(int(d.name.split("_")[-1]) for d in ckpt.iterdir()
+                            if d.name.split("_")[-1].isdigit())
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    losses = tr["losses"]
+    check(tr["step"] == EX_TRAIN_STEPS and all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train_lm: losses {losses} at step {tr['step']}")
+    expect(counts, {}, "train_lm")
+    step_s = float(np.median([dt for _, _, dt in tr["loop"].history]))
+    tokens = tr["loop"].data_iter.cfg.global_batch * tr["loop"].data_iter.cfg.seq_len
+    ex["train_lm"] = {"s": secs, "params": tr["model"].total_params(), "losses": losses,
+                      "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+                      "ckpt_steps": ckpt_steps}
+    log(f"[examples] train_lm {tr['model'].total_params() / 1e6:.1f}M params, "
+        f"{EX_TRAIN_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"{step_s * 1e3:.1f} ms a logged step (wall, median), {tokens / step_s:.0f} tokens/s; "
+        f"checkpoints at steps {ckpt_steps} (deleted); card: {smi}")
+    del tr
+    torch.cuda.empty_cache()
+
+    ex["phase_s"] = time.perf_counter() - t17
+    log(f"[examples] phase 17 took {ex['phase_s']:.1f} s; launches {ex['launches']}")
+    return ex
 
 
 def main(argv=None) -> int:
@@ -2990,6 +3294,12 @@ def main(argv=None) -> int:
     # --- 16. the dry-run and roofline tools: the meta sweep, Qwen3-0.6B's step --------
     out["dryrun"] = dryrun_phase(torch, dev, smi, meta_sweep)
 
+    # --- 17. the examples at the paper's scale ------------------------------------------
+    out["examples"] = examples_phase(torch, dev, smi, args.n)
+    for name in ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv", "sell_spmm", "bell_spmm",
+                 "stream_triad"):
+        record(name, launches_examples=out["examples"]["launches"].get(name, 0))
+
     # --- report -----------------------------------------------------------------
     names = ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv", "sell_spmm", "stream_triad",
              "gather_scp", "bell_spmm", "grouped_gemm", "grouped_gemm_wgmma")
@@ -2999,10 +3309,12 @@ def main(argv=None) -> int:
     # launches_distributed: phase 13's (kernel 1 in its Lanczos, kernel 5 in its
     # served flush; 0 for a kernel off the distributed path)
     # launches_lm: phase 14's (the pruned FFN weight's kernel; 0 elsewhere)
+    # launches_examples: phase 17's, summed over the seven examples
     kernels = [{**{k: rows[n].get(k) for k in keys},
                 "launches_serving": rows[n].get("launches_serving", 0),
                 "launches_distributed": rows[n].get("launches_distributed", 0),
-                "launches_lm": rows[n].get("launches_lm", 0)}
+                "launches_lm": rows[n].get("launches_lm", 0),
+                "launches_examples": rows[n].get("launches_examples", 0)}
                for n in names]
     for kr in kernels:
         check(all(kr[k] is not None for k in keys if k != "library_ms")
@@ -3017,6 +3329,11 @@ def main(argv=None) -> int:
     check(sum(kr["launches_lm"] for kr in kernels
               if kr["name"] in ("bell_spmm", "sell_spmm")) > 0,
           "no sparse-weight kernel was launched on the LM path")
+    for kr in kernels:
+        # bell_spmm runs when serve_sparse's advisor picks bsr (phase 17e checks it)
+        check(kr["launches_examples"] > 0 or kr["name"] in (
+            "gather_scp", "grouped_gemm", "grouped_gemm_wgmma", "bell_spmm"),
+              f"{kr['name']} was never launched by the examples")
     out["kernels"] = [rows[n] for n in names]
     for kr in out["kernels"]:
         kr["bound_ms_at_measured_bw"] = kr["bound_ms"] * H100.hbm_bytes_per_s / \

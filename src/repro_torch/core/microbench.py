@@ -23,20 +23,22 @@ default is the CUDA-event timer, which needs the card.
 ``stream_triad_bandwidth`` measures the card through the STREAM-triad
 kernel (``kernels.gather_bench.stream_triad``) and ``card_chip`` turns that
 into the ``ChipSpec`` the balance model predicts with -- the counterpart of
-the reference benchmarks' ``host_chip``.  ``run_gather_split`` is the
-Fig. 2/3b dense-vs-indirect split through the triad and ``gather_scp``
-kernels.
+the reference benchmarks' ``host_chip``, which ``host_chip`` is on the host
+(its plain triad on the host clock).  ``run_gather_split`` is the Fig.
+2/3b dense-vs-indirect split through the triad and ``gather_scp`` kernels.
+``time_fn`` is the reference's best / mean wall-clock helper.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..kernels import gather_bench as GB
-from ..testing.timing import CudaEventTimer
-from ..utils.hw import H100, ChipSpec, default_device
+from ..testing.timing import CudaEventTimer, WallTimer
+from ..utils.hw import H100, ChipSpec, default_device, synchronize
 
 # ---------------------------------------------------------------------------
 # index-vector generators (the paper's stride distributions)
@@ -122,24 +124,52 @@ class BenchResult:
     name: str
     n_elements: int
     best_s: float
+    mean_s: float
     bytes_moved: float           # model-side traffic (for BW derivation)
     gbytes_per_s: float
     ns_per_element: float
+    cycles_per_element_1ghz: float
 
     def row(self) -> str:
         return (f"{self.name},{self.n_elements},{self.best_s:.3e},"
                 f"{self.gbytes_per_s:.2f},{self.ns_per_element:.2f}")
 
 
+def time_fn(fn, *args, repeats: int = 7, inner: int = 3) -> tuple[float, float]:
+    """Best/mean wall seconds of ``fn(*args)`` after one warm-up call; the
+    devices of the tensors in and out are synchronized after each inner
+    loop (PyTorch runs eagerly: no ``jit`` step)."""
+    out = fn(*args)
+    devices = {t.device for t in (*args, out) if isinstance(t, torch.Tensor)}
+
+    def fence():
+        for d in devices:
+            synchronize(d)
+
+    fence()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn(*args)
+        fence()
+        times.append((time.perf_counter() - t0) / inner)
+    return min(times), float(np.mean(times))
+
+
 def bench(name: str, fn, args, n_elements: int, bytes_moved: float,
           timer=None, iters: int = 10) -> BenchResult:
-    """Time ``fn(*args)`` with ``timer`` (default: CUDA events)."""
+    """Time ``fn(*args)`` with ``timer`` (default: CUDA events): the best and
+    the mean of its repeats."""
     timer = timer if timer is not None else CudaEventTimer()
-    best = timer.measure(fn, args, key=name, iters=iters)
+    times = timer.measure_all(fn, args, key=name, iters=iters)
+    best = min(times)
+    per_element = best / max(1, n_elements)
     return BenchResult(name=name, n_elements=n_elements, best_s=best,
-                       bytes_moved=bytes_moved,
+                       mean_s=float(np.mean(times)), bytes_moved=bytes_moved,
                        gbytes_per_s=bytes_moved / best / 1e9,
-                       ns_per_element=best / max(1, n_elements) * 1e9)
+                       ns_per_element=per_element * 1e9,
+                       cycles_per_element_1ghz=per_element * 1e9)
 
 
 def _normal(rng, n: int, dtype, device) -> torch.Tensor:
@@ -263,6 +293,19 @@ def stream_triad_bandwidth(n: int = 1 << 26, dtype=torch.float32, device=None,
 
 
 _CAL: dict = {}
+
+
+def host_chip(n: int = 1 << 24) -> ChipSpec:
+    """A ``ChipSpec`` for this host with its STREAM-triad bandwidth measured
+    on the host clock (f32, ``n`` per array; once per process) -- the
+    counterpart of the reference benchmarks' ``host_chip``, priced in the
+    ``cpu`` family."""
+    key = ("cpu", n)
+    if key not in _CAL:
+        bw = stream_triad_bandwidth(n, device="cpu", timer=WallTimer(repeats=5), iters=1)
+        _CAL[key] = ChipSpec(name="host_cpu", peak_flops_fp32=1e12, peak_flops_fp64=5e11,
+                             hbm_bytes_per_s=bw, measured=True, hbm_bytes=8 << 30)
+    return _CAL[key]
 
 
 def card_chip(device=None, n: int = 1 << 26) -> ChipSpec:

@@ -1,6 +1,9 @@
 """Injectable timing: one ``measure`` protocol, three clocks.
 
     timer.measure(fn, args, key="powerlaw/jds/torch", iters=10) -> seconds
+    timer.measure_all(fn, args, key=..., iters=10) -> [seconds of each repeat]
+
+``measure`` is the best of ``measure_all``'s repeats.
 
 * :class:`WallTimer` -- host clock: a warm-up call, then best-of-``repeats``
   over ``iters`` back-to-back calls, fenced with ``torch.cuda.synchronize``
@@ -35,17 +38,21 @@ class WallTimer:
 
     def measure(self, fn, args=(), *, key: str | None = None,
                 iters: int = 10) -> float:
+        return min(self.measure_all(fn, args, key=key, iters=iters))
+
+    def measure_all(self, fn, args=(), *, key: str | None = None,
+                    iters: int = 10) -> list[float]:
         del key  # provenance only; the clock times whatever it is given
         fn(*args)
         _fence()
-        best = float("inf")
+        out = []
         for _ in range(self.repeats):
             t0 = time.perf_counter()
             for _ in range(iters):
                 fn(*args)
             _fence()
-            best = min(best, (time.perf_counter() - t0) / iters)
-        return best
+            out.append((time.perf_counter() - t0) / iters)
+        return out
 
 
 @dataclass
@@ -57,6 +64,10 @@ class CudaEventTimer:
 
     def measure(self, fn, args=(), *, key: str | None = None,
                 iters: int = 10) -> float:
+        return min(self.measure_all(fn, args, key=key, iters=iters))
+
+    def measure_all(self, fn, args=(), *, key: str | None = None,
+                    iters: int = 10) -> list[float]:
         del key
         if not torch.cuda.is_available():
             raise RuntimeError("CudaEventTimer needs a CUDA device: a device "
@@ -73,7 +84,7 @@ class CudaEventTimer:
                 fn(*args)
             end.record()
         torch.cuda.synchronize()
-        return min(s.elapsed_time(e) for s, e in pairs) * 1e-3 / iters
+        return [s.elapsed_time(e) * 1e-3 / iters for s, e in pairs]
 
 
 @dataclass
@@ -90,9 +101,13 @@ class FakeTimer:
 
     def measure(self, fn, args=(), *, key: str | None = None,
                 iters: int = 10) -> float:
+        return self.measure_all(fn, args, key=key, iters=iters)[0]
+
+    def measure_all(self, fn, args=(), *, key: str | None = None,
+                    iters: int = 10) -> list[float]:
         del fn, args, iters
         self.calls.append(key)
-        return float(self.latencies.get(key, self.default_s))
+        return [float(self.latencies.get(key, self.default_s))]
 
     def count(self, key: str) -> int:
         """How many times ``measure`` was asked about ``key``."""

@@ -184,3 +184,11 @@ def default_device(device=None) -> torch.device:
             "on the host")
     return dev if dev.index is not None else torch.device(
         "cuda", torch.cuda.current_device())
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` (a no-op off CUDA): eager
+    PyTorch returns before the card finishes."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

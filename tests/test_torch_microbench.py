@@ -8,6 +8,8 @@ microbenchmark kernels run in interpret mode at n = 4096, tile 1024, as
 its own tests run them.  The CUDA kernels themselves run on the card
 (``test_torch_on_card.py``, ``chip_smoke.py``).
 """
+import dataclasses
+
 import pytest
 
 pytest.importorskip("jax")
@@ -159,3 +161,24 @@ def test_card_chip_needs_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MB.card_chip()
+
+
+def test_bench_result_fields_and_time_fn_match_the_reference():
+    assert [f.name for f in dataclasses.fields(MB.BenchResult)] == \
+        [f.name for f in dataclasses.fields(RMB.BenchResult)]
+    calls = []
+
+    def fn(a):
+        calls.append(1)
+        return a + 1
+
+    best, mean = MB.time_fn(fn, torch.ones(8), repeats=2, inner=3)
+    assert len(calls) == 1 + 2 * 3 and 0 < best <= mean
+    r = MB.bench("X", fn, (torch.ones(8),), 8, 64.0, timer=T.FakeTimer(default_s=2e-6))
+    assert r.best_s == r.mean_s == 2e-6 and len(calls) == 7   # never run
+    assert r.cycles_per_element_1ghz == r.ns_per_element == pytest.approx(250.0)
+    assert r.row() == "X,8,2.000e-06,0.03,250.00"
+    times = T.WallTimer(repeats=3).measure_all(fn, (torch.ones(8),), iters=2)
+    assert len(times) == 3 and len(calls) == 7 + 1 + 3 * 2
+    w = MB.bench("W", fn, (torch.ones(8),), 8, 64.0, timer=T.WallTimer(repeats=3), iters=2)
+    assert 0 < w.best_s <= w.mean_s
