@@ -195,7 +195,8 @@ repository configures:
    ``matrix_free_laplacian --nx EX_NX`` (1,404,928 rows): ``materialize``
    bitwise, kernel 4 once an SpMV and kernel 3 once a call, the card's
    STREAM calibration (kernel 8) made anew, the measured against the
-   modelled B/nnz, the two plans within 1e-5; (d) ``distributed_spmv --n
+   modelled B/nnz, each plan within ``TOL`` of a host f64 product and the
+   two within 1e-5 of each other; (d) ``distributed_spmv --n
    1201200``: every variant within 1e-5 of the CSR product, kernel 1 once a
    non-empty slab a call; (e) ``serve_sparse --full``: Qwen3-0.6B's layer-0
    gate (3072 x 1024) at 25 % in (8, 128) blocks through its kernel (6, or
@@ -1334,10 +1335,13 @@ def examples_phase(torch, dev, smi: str, n: int) -> dict:
     check(counts.get("stream_triad", 0) > 0, "matrix_free: card_chip() did not calibrate")
     want["stream_triad"] = counts.get("stream_triad", 0)
     expect(counts, want, "matrix_free_laplacian")
+    y_host = host_product(mf["matrix"], mf["x"])
+    host_rel = {k: against_host(f"matrix_free_laplacian {k} plan(x)", p_(mf["x"]), y_host)
+                for k, p_ in mf["plans"].items()}
     check(mf["parity_rel_err"] <= 1e-5, f"matrix_free vs csr plan: {mf['parity_rel_err']:.2e}")
     ex["matrix_free_laplacian"] = {
         "s": secs, "rows": mf["matrix"].shape[0], "nnz": mf["matrix"].nnz,
-        "launches": counts, "model_bytes_per_nnz": mf["bytes_per_nnz"],
+        "launches": counts, "host_rel_err": host_rel, "model_bytes_per_nnz": mf["bytes_per_nnz"],
         "moved_bytes_per_nnz": mf["moved_per_nnz"],
         "ms": {k: v * 1e3 for k, v in mf["seconds"].items()},
         "triad_bytes_per_s": mf["chip"].hbm_bytes_per_s, "rel_err": mf["parity_rel_err"],
@@ -1348,8 +1352,9 @@ def examples_phase(torch, dev, smi: str, n: int) -> dict:
         f"{rec['model_bytes_per_nnz']['csr']:.2f}), matrix_free {rec['ms']['matrix_free']:.4f} "
         f"ms = {rec['moved_bytes_per_nnz']['matrix_free']:.2f} B/nnz (model "
         f"{rec['model_bytes_per_nnz']['matrix_free']:.2f}) at the triad rate "
-        f"{rec['triad_bytes_per_s'] / 1e12:.4f} TB/s; E0 {mf['e0']:.6f}")
-    del mf
+        f"{rec['triad_bytes_per_s'] / 1e12:.4f} TB/s; from the host f64 product: csr "
+        f"{host_rel['csr']:.2e}, matrix_free {host_rel['matrix_free']:.2e}; E0 {mf['e0']:.6f}")
+    del mf, y_host
 
     # 17d. distributed_spmv: the three variants, one shard a visible card
     ds, counts, secs = run("distributed_spmv", distributed_spmv, ["--n", str(n)])

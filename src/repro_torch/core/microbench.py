@@ -295,17 +295,19 @@ def stream_triad_bandwidth(n: int = 1 << 26, dtype=torch.float32, device=None,
 _CAL: dict = {}
 
 
-def host_chip(n: int = 1 << 24) -> ChipSpec:
+def host_chip() -> ChipSpec:
     """A ``ChipSpec`` for this host with its STREAM-triad bandwidth measured
-    on the host clock (f32, ``n`` per array; once per process) -- the
-    counterpart of the reference benchmarks' ``host_chip``, priced in the
-    ``cpu`` family."""
-    key = ("cpu", n)
-    if key not in _CAL:
-        bw = stream_triad_bandwidth(n, device="cpu", timer=WallTimer(repeats=5), iters=1)
-        _CAL[key] = ChipSpec(name="host_cpu", peak_flops_fp32=1e12, peak_flops_fp64=5e11,
-                             hbm_bytes_per_s=bw, measured=True, hbm_bytes=8 << 30)
-    return _CAL[key]
+    on the host clock (f32, 2^24 per array; once per process) -- the
+    counterpart of the reference benchmarks' ``host_chip``, with its peaks
+    (bf16 1e12, f32 5e11; f64 the f32 peak, as the CPU presets set it),
+    priced in the ``cpu`` family."""
+    if "host" not in _CAL:
+        bw = stream_triad_bandwidth(1 << 24, device="cpu", timer=WallTimer(repeats=5),
+                                    iters=1)
+        _CAL["host"] = ChipSpec(name="host_cpu", peak_flops_fp32=5e11, peak_flops_fp64=5e11,
+                                hbm_bytes_per_s=bw, measured=True, peak_flops_bf16=1e12,
+                                hbm_bytes=8 << 30)
+    return _CAL["host"]
 
 
 def card_chip(device=None, n: int = 1 << 26) -> ChipSpec:

@@ -17,7 +17,6 @@ device=...)`` places P shards on one device.
 from __future__ import annotations
 
 import argparse
-import time
 
 import torch
 
@@ -26,8 +25,8 @@ from ..core.distributed import make_mesh_1d
 from ..core.distributed_plan import VARIANTS, plan_all_variants
 from ..core.eigensolver import ground_state_energy
 from ..core.matrices import holstein_hubbard_surrogate
-from ..utils.hw import default_device, synchronize
-from .quickstart import draw_x
+from ..utils.hw import default_device
+from .quickstart import draw_x, time_plan
 
 #: timed calls of each variant (after one warm-up call)
 ITERS = 10
@@ -44,13 +43,7 @@ def compare_variants(m, mesh, x: torch.Tensor) -> dict:
     out = {}
     for variant in VARIANTS:
         plan = plans[variant]
-        plan(x)
-        synchronize(x.device)
-        t0 = time.perf_counter()
-        for _ in range(ITERS):
-            y = plan(x)
-        synchronize(x.device)
-        dt = (time.perf_counter() - t0) / ITERS
+        dt, y = time_plan(plan, x, ITERS)
         err = float((y.double() - y_ref).abs().max()) / scale
         print(f"{variant:<10} {plan.slab_format:<5} {plan.imbalance:>6.3f} "
               f"{plan.local_fraction:>6.2f} {plan.traffic['collective'] / 1e6:>8.2f} "

@@ -32,7 +32,7 @@ from ..core.matrices import (HolsteinHubbardParams, holstein_hubbard_exact,
 from ..core.plan import SpMVPlan
 from ..core.planconfig import PlanConfig
 from ..utils.hw import default_device, synchronize
-from .quickstart import draw_x
+from .quickstart import draw_x, time_plan
 
 #: the shoot-out's formats, each with its conversion from the CSR source
 FORMATS = {"csr": lambda m: m, "ell": F.ELL.from_csr, "jds": F.JDS.from_csr,
@@ -65,13 +65,7 @@ def shootout(m, x: torch.Tensor, dev: torch.device) -> dict:
         obj = conv(m)
         convert_s = time.perf_counter() - t0
         f = SpMVPlan.compile(obj, PlanConfig(device=dev))
-        f(x)
-        synchronize(dev)
-        t0 = time.perf_counter()
-        for _ in range(ITERS):
-            f(x)
-        synchronize(dev)
-        t = (time.perf_counter() - t0) / ITERS
+        t = time_plan(f, x, ITERS)[0]
         out[name] = {"plan": f, "seconds": t, "gflops": 2 * m.nnz / t / 1e9,
                      "kernel": f.report.kernel, "convert_s": convert_s}
         print(f"  {name:7s} {out[name]['gflops']:7.2f} GFLOP/s ({t * 1e3:.3f} ms) "

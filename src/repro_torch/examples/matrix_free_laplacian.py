@@ -36,22 +36,10 @@ from ..core.microbench import card_chip, host_chip
 from ..core.plan import SpMVPlan
 from ..core.planconfig import PlanConfig
 from ..utils.hw import default_device, synchronize
-from .quickstart import draw_x
+from .quickstart import draw_x, time_plan
 
 #: timed calls of each plan in step 3 (after one warm-up call)
 ITERS = 50
-
-
-def time_plan(plan, x: torch.Tensor) -> float:
-    """Wall seconds a call of ``plan(x)``: one warm-up, then ``ITERS`` calls
-    fenced by one synchronize."""
-    plan(x)
-    synchronize(x.device)
-    t0 = time.perf_counter()
-    for _ in range(ITERS):
-        plan(x)
-    synchronize(x.device)
-    return (time.perf_counter() - t0) / ITERS
 
 
 def main(argv=None) -> dict:
@@ -90,7 +78,7 @@ def main(argv=None) -> dict:
     x = draw_x(m.shape[0], dev)
     plan_csr = SpMVPlan.compile(m, PlanConfig(format="csr", chip=chip, device=dev))
     plan_mf = SpMVPlan.compile(m, PlanConfig(format="matrix_free", chip=chip, device=dev))
-    t_csr, t_mf = time_plan(plan_csr, x), time_plan(plan_mf, x)
+    t_csr, t_mf = time_plan(plan_csr, x, ITERS)[0], time_plan(plan_mf, x, ITERS)[0]
     bw = chip.hbm_bytes_per_s
     moved_csr, moved_mf = t_csr * bw / m.nnz, t_mf * bw / m.nnz
     print(f"[measured] csr        : {t_csr * 1e3:7.4f} ms  "

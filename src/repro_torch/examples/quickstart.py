@@ -14,6 +14,7 @@ prices the formats on the device's chip: the H100 data sheet on the card,
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 import torch
@@ -25,7 +26,7 @@ from ..core.matrices import holstein_hubbard_surrogate
 from ..core.microbench import host_chip
 from ..core.plan import SpMVPlan
 from ..core.planconfig import PlanConfig
-from ..utils.hw import H100, default_device
+from ..utils.hw import H100, default_device, synchronize
 
 
 def device_chip(dev: torch.device):
@@ -36,6 +37,18 @@ def device_chip(dev: torch.device):
 def draw_x(n: int, dev: torch.device, dtype=np.float32) -> torch.Tensor:
     """The examples' input vector: ``default_rng(0)`` normals in ``dtype``."""
     return torch.from_numpy(np.random.default_rng(0).standard_normal(n).astype(dtype)).to(dev)
+
+
+def time_plan(plan, x: torch.Tensor, iters: int) -> tuple[float, torch.Tensor]:
+    """Wall seconds a call of ``plan(x)``, and its last result: one warm-up
+    call, then ``iters`` calls fenced by one synchronize of x's device."""
+    plan(x)
+    synchronize(x.device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        y = plan(x)
+    synchronize(x.device)
+    return (time.perf_counter() - t0) / iters, y
 
 
 def main(argv=None) -> dict:

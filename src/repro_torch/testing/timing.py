@@ -24,10 +24,12 @@ from dataclasses import dataclass, field
 
 import torch
 
+from ..utils.hw import synchronize
+
 
 def _fence() -> None:
     if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+        synchronize(torch.device("cuda", torch.cuda.current_device()))
 
 
 @dataclass

@@ -9,6 +9,7 @@ import importlib
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import pytest
 
@@ -73,6 +74,14 @@ def ref_e0(apply_A, n: int, m: int, dtype=jnp.float32) -> float:
                             dtype=dtype).eigenvalues[0])
 
 
+def ref_host_chip(bw: float):
+    """The reference benchmarks' ``host_chip`` at the bandwidth ``bw``."""
+    import benchmarks.common as BC
+    with mock.patch.object(BC, "_CAL", {}), \
+            mock.patch.object(BC, "stream_triad_bandwidth", lambda: bw):
+        return BC.host_chip()
+
+
 def ref_chip_like(chip: ChipSpec):
     """The reference's ChipSpec with the port chip's rates."""
     return RHW.ChipSpec(chip.name, chip.peak_flops_bf16, chip.peak_flops_fp32,
@@ -112,7 +121,8 @@ def test_quickstart_stats_and_advice_match_reference(quickstart):
     stats = RF.matrix_stats(rm)
     assert quickstart["stats"] == stats
     chip = MB.host_chip()          # the chip main priced on (measured once)
-    want = RPM.advise(stats, rm.row_lengths(), am=RPM.TPU_FP32, chip=ref_chip_like(chip))
+    want = RPM.advise(stats, rm.row_lengths(), am=RPM.TPU_FP32,
+                      chip=ref_host_chip(chip.hbm_bytes_per_s))
     got = quickstart["advice"]
     assert got["_best"] == want["_best"] == quickstart["best"]
     assert set(got) == set(want)

@@ -182,3 +182,18 @@ def test_bench_result_fields_and_time_fn_match_the_reference():
     assert len(times) == 3 and len(calls) == 7 + 1 + 3 * 2
     w = MB.bench("W", fn, (torch.ones(8),), 8, 64.0, timer=T.WallTimer(repeats=3), iters=2)
     assert 0 < w.best_s <= w.mean_s
+
+
+def test_host_chip_is_the_reference_host_chip_but_its_bandwidth(monkeypatch):
+    import benchmarks.common as BC
+    monkeypatch.setattr(BC, "_CAL", {})
+    monkeypatch.setattr(BC, "stream_triad_bandwidth", lambda: 12.5e9)
+    monkeypatch.setattr(MB, "_CAL", {})
+    monkeypatch.setattr(MB, "stream_triad_bandwidth", lambda *a, **k: 12.5e9)
+    want, got = BC.host_chip(), MB.host_chip()
+    assert got is MB.host_chip()                 # measured once a process
+    assert (got.name, got.peak_flops_bf16, got.peak_flops_fp32, got.hbm_bytes_per_s,
+            got.hbm_bytes, got.link_bytes_per_s, got.links) == (
+        want.name, want.peak_flops_bf16, want.peak_flops_fp32, want.hbm_bytes_per_s,
+        want.hbm_bytes, want.ici_bytes_per_s_per_link, want.ici_links)
+    assert got.peak_flops_fp64 == got.peak_flops_fp32 and got.measured
