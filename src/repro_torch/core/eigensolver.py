@@ -10,7 +10,8 @@ The start vector comes from numpy (``seed``) or from the caller's ``v0``,
 so a run can be compared with the reference on the same vector.  With
 reorthogonalization the basis lives in one preallocated (m + 1, n) tensor
 on the plan's device, filled row by row, instead of being re-stacked on
-every step.
+every step.  Each iteration is the ``lanczos.step`` span, its read of
+alpha and beta on the host the ``lanczos.sync`` span (``utils.spans``).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..utils.hw import default_device
+from ..utils.spans import span
 
 Apply = Callable[[torch.Tensor], torch.Tensor]
 
@@ -133,27 +135,29 @@ def _lanczos_once(apply_A, n, m, v0, reorthogonalize, seed, dtype, dev) -> Lancz
     v_prev = torch.zeros_like(v)
     n_spmv = 0
     for j in range(m):
-        w = apply_A(v).to(dtype)
-        n_spmv += 1
-        alpha = torch.dot(v, w)
-        w = w - alpha * v - beta * v_prev
-        if reorthogonalize:
-            basis = V[:j + 1]
-            w = w - basis.T @ (basis @ w)
-            w = w - basis.T @ (basis @ w)  # twice is enough
-        beta_new = torch.linalg.vector_norm(w)
-        a, b = float(alpha), float(beta_new)
-        if not (np.isfinite(a) and np.isfinite(b)):
-            raise LanczosBreakdown(j, a, b)
-        alphas.append(a)
-        betas.append(b)
-        if b < 1e-12 * max(1.0, abs(a)):
-            break
-        v_prev = v
-        v = w / beta_new
-        if reorthogonalize:
-            V[j + 1] = v
-        beta = beta_new
+        with span("lanczos.step"):
+            w = apply_A(v).to(dtype)
+            n_spmv += 1
+            alpha = torch.dot(v, w)
+            w = w - alpha * v - beta * v_prev
+            if reorthogonalize:
+                basis = V[:j + 1]
+                w = w - basis.T @ (basis @ w)
+                w = w - basis.T @ (basis @ w)  # twice is enough
+            beta_new = torch.linalg.vector_norm(w)
+            with span("lanczos.sync"):
+                a, b = float(alpha), float(beta_new)
+            if not (np.isfinite(a) and np.isfinite(b)):
+                raise LanczosBreakdown(j, a, b)
+            alphas.append(a)
+            betas.append(b)
+            if b < 1e-12 * max(1.0, abs(a)):
+                break
+            v_prev = v
+            v = w / beta_new
+            if reorthogonalize:
+                V[j + 1] = v
+            beta = beta_new
 
     a = np.asarray(alphas)
     b = np.asarray(betas[: len(alphas) - 1])

@@ -24,7 +24,8 @@ container into a reusable executor:
 and ``tuning`` (a ``core.tunedb.TuneDB``) lets measured winners decide
 ``format="auto"`` and the backend (the warm path).  ``plan(x)`` and
 ``plan.spmm(X)`` pass the ``plan.spmv`` / ``plan.spmm`` fault points of
-``testing.faults``: free when disarmed.
+``testing.faults``: free when disarmed.  The operand, its shape and the
+fault point are the ``plan.operand`` span (``utils.spans``).
 
 ``plan.report`` records what was decided and what the roofline predicts
 for it (balance, GFlop/s, seconds, the bound), with the byte regime of the
@@ -40,6 +41,7 @@ import torch
 from ..kernels import registry as R
 from ..testing import faults
 from ..utils.hw import H100, ChipSpec, default_device
+from ..utils.spans import span
 from . import perfmodel as PM
 from .formats import BSR, COO, CSR, DIA, ELL, JDS, SELL, HybridDIA, MatrixFreeOperator
 from .planconfig import PlanConfig, coerce_config
@@ -108,21 +110,23 @@ class SpMVPlan:
     def spmv(self, x) -> torch.Tensor:
         """y = A @ x for x of shape (N,) on the plan's device; raises
         ValueError on a shape or device mismatch."""
-        x = self._operand(x, "x")
-        if tuple(x.shape) != (self.report.shape[1],):
-            raise ValueError(f"x has shape {tuple(x.shape)}, expected "
-                             f"({self.report.shape[1]},)")
-        spec = self._fire("spmv")
+        with span("plan.operand"):
+            x = self._operand(x, "x")
+            if tuple(x.shape) != (self.report.shape[1],):
+                raise ValueError(f"x has shape {tuple(x.shape)}, expected "
+                                 f"({self.report.shape[1]},)")
+            spec = self._fire("spmv")
         y = self.apply(x)
         return faults.poison(y, spec) if spec is not None else y
 
     def spmm(self, X) -> torch.Tensor:
         """Y = A @ X for X of shape (N, K)."""
-        X = self._operand(X, "X")
-        if X.dim() != 2 or X.shape[0] != self.report.shape[1]:
-            raise ValueError(f"X has shape {tuple(X.shape)}, expected "
-                             f"({self.report.shape[1]}, K)")
-        spec = self._fire("spmm")
+        with span("plan.operand"):
+            X = self._operand(X, "X")
+            if X.dim() != 2 or X.shape[0] != self.report.shape[1]:
+                raise ValueError(f"X has shape {tuple(X.shape)}, expected "
+                                 f"({self.report.shape[1]}, K)")
+            spec = self._fire("spmm")
         Y = self.apply_multi(X)
         return faults.poison(Y, spec) if spec is not None else Y
 

@@ -16,6 +16,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from . import cuda_build as CB
 from .accum import acc_dtype
 
@@ -120,27 +121,23 @@ def csr_spmv_arrays(row_ptr, col_idx, val, scale, x, row_blocks=None):
         raise ValueError(f"csr_spmv: no kernel for device {x.device}")
     dev = x.device
     acc = acc_dtype(val.dtype, x.dtype)
-    x = x.to(acc).contiguous()
-    CB.check_tensor(row_ptr, "row_ptr", dev, (torch.int32,), 1)
-    CB.check_tensor(col_idx, "col_idx", dev, (torch.int32,), 1)
-    CB.check_tensor(val, "val", dev, None, 1)
-    if val.shape != col_idx.shape:
-        raise ValueError(f"val {tuple(val.shape)} and col_idx "
-                         f"{tuple(col_idx.shape)} differ")
-    if scale is not None:
-        CB.check_tensor(scale, "scale", dev, (torch.float32,), 1)
-        if scale.shape[0] != n:
-            raise ValueError(f"scale has {scale.shape[0]} rows, expected {n}")
+    with span("kernel.check"):
+        x = x.to(acc).contiguous()
+        CB.check_tensor(row_ptr, "row_ptr", dev, (torch.int32,), 1)
+        CB.check_tensor(col_idx, "col_idx", dev, (torch.int32,), 1)
+        CB.check_tensor(val, "val", dev, None, 1)
+        if val.shape != col_idx.shape:
+            raise ValueError(f"val {tuple(val.shape)} and col_idx "
+                             f"{tuple(col_idx.shape)} differ")
+        if scale is not None:
+            CB.check_tensor(scale, "scale", dev, (torch.float32,), 1)
+            if scale.shape[0] != n:
+                raise ValueError(f"scale has {scale.shape[0]} rows, expected {n}")
     if row_blocks is None:
         row_blocks = csr_row_blocks(row_ptr)
     blocks = row_blocks.on(dev)
     y = torch.empty(n, dtype=acc, device=dev)
-    fn = CB.kernel_function(NAME, _ARGTYPES)
-    with torch.cuda.device(dev):
-        rc = fn(CB.value_code(val, "val"), int(acc == torch.float64),
-                CB.ptr(row_ptr), CB.ptr(col_idx), CB.ptr(val), CB.ptr(scale),
-                CB.ptr(x), CB.ptr(y), n, CB.ptr(blocks), row_blocks.n_blocks,
-                CB.stream_handle(dev))
-    CB.raise_on_error(NAME, rc)
-    CB.count_launch(NAME)
+    CB.launch(NAME, _ARGTYPES, dev, CB.value_code(val, "val"), int(acc == torch.float64),
+              CB.ptr(row_ptr), CB.ptr(col_idx), CB.ptr(val), CB.ptr(scale),
+              CB.ptr(x), CB.ptr(y), n, CB.ptr(blocks), row_blocks.n_blocks)
     return y

@@ -13,7 +13,9 @@ loaded as it is.
 Every wrapper adds one to its entry of the launch counters where it
 launches its kernel, and nowhere else, so a run can show that its main path
 went through the kernels.  The grouped GEMM and the BELL SpMM also count
-the path that ran (``PATH_COUNTERS``).
+the path that ran (``PATH_COUNTERS``).  The SELL, DIA, CSR and
+matrix-free SpMVs and the SELL SpMM launch through :func:`launch`, which
+counts the launch inside the ``kernel.launch`` span (``utils.spans``).
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from ..utils.spans import span
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -214,3 +218,15 @@ def raise_on_error(name: str, rc: int) -> None:
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, argtypes: list, device: torch.device, *args) -> None:
+    """Launch the C entry point ``name`` (``kernel_function``) on ``device``
+    with ``args`` and, last, the device's current stream; raise on a failed
+    launch, else count it.  All of it is the ``kernel.launch`` span."""
+    with span("kernel.launch"):
+        fn = kernel_function(name, argtypes)
+        with torch.cuda.device(device):
+            rc = fn(*args, stream_handle(device))
+        raise_on_error(name, rc)
+        count_launch(name)

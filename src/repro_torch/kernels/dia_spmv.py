@@ -12,6 +12,7 @@ import ctypes
 import torch
 import torch.nn.functional as Fnn
 
+from ..utils.spans import span
 from . import cuda_build as CB
 from .accum import acc_dtype
 
@@ -66,27 +67,23 @@ def dia_spmv_arrays(data, offsets, scales, x_pad, pad0: int, n: int):
         raise ValueError(f"dia_spmv: no kernel for device {x_pad.device}")
     dev = x_pad.device
     acc = acc_dtype(data.dtype, x_pad.dtype)
-    x_pad = x_pad.to(acc).contiguous()
-    CB.check_tensor(data, "data", dev, None, 2)
-    CB.check_tensor(offsets, "offsets", dev, (torch.int32,), 1)
-    nd, ld = data.shape
-    if offsets.shape[0] != nd or ld < n:
-        raise ValueError(f"data {tuple(data.shape)} does not fit {offsets.shape[0]} "
-                         f"offsets and {n} rows")
-    if scales is not None:
-        CB.check_tensor(scales, "scales", dev, (torch.float32,), 1)
-        if scales.shape[0] != nd:
-            raise ValueError(f"{scales.shape[0]} scales for {nd} diagonals")
-    CB.check_tensor(x_pad, "x_pad", dev, None, 1)
-    if pad0 < 0:
-        raise ValueError(f"pad0={pad0} < 0")
+    with span("kernel.check"):
+        x_pad = x_pad.to(acc).contiguous()
+        CB.check_tensor(data, "data", dev, None, 2)
+        CB.check_tensor(offsets, "offsets", dev, (torch.int32,), 1)
+        nd, ld = data.shape
+        if offsets.shape[0] != nd or ld < n:
+            raise ValueError(f"data {tuple(data.shape)} does not fit {offsets.shape[0]} "
+                             f"offsets and {n} rows")
+        if scales is not None:
+            CB.check_tensor(scales, "scales", dev, (torch.float32,), 1)
+            if scales.shape[0] != nd:
+                raise ValueError(f"{scales.shape[0]} scales for {nd} diagonals")
+        CB.check_tensor(x_pad, "x_pad", dev, None, 1)
+        if pad0 < 0:
+            raise ValueError(f"pad0={pad0} < 0")
     y = torch.empty(n, dtype=acc, device=dev)
-    fn = CB.kernel_function(NAME, _ARGTYPES)
-    with torch.cuda.device(dev):
-        rc = fn(CB.value_code(data, "data"), int(acc == torch.float64),
-                CB.ptr(data), ld, CB.ptr(offsets), CB.ptr(scales), nd,
-                CB.ptr(x_pad), x_pad.shape[0], pad0, CB.ptr(y), n,
-                CB.stream_handle(dev))
-    CB.raise_on_error(NAME, rc)
-    CB.count_launch(NAME)
+    CB.launch(NAME, _ARGTYPES, dev, CB.value_code(data, "data"), int(acc == torch.float64),
+              CB.ptr(data), ld, CB.ptr(offsets), CB.ptr(scales), nd,
+              CB.ptr(x_pad), x_pad.shape[0], pad0, CB.ptr(y), n)
     return y

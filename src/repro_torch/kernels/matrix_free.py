@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.formats import VALUE_DTYPES, MatrixFreeOperator, _cast
+from ..utils.spans import span
 from . import cuda_build as CB
 from .accum import acc_dtype
 from .cache import cached, register_stat, spmm_by_columns
@@ -260,22 +261,19 @@ def mf_spmv_arrays(data, launch: MfLaunch, x):
     if x.device.type != "cuda":
         raise ValueError(f"mf_spmv: no kernel for device {x.device}")
     dev = x.device
-    if data.device != dev or not data.is_contiguous():
-        raise ValueError(f"mf_spmv: lanes on {data.device} (contiguous: "
-                         f"{data.is_contiguous()}), x on {dev}")
-    if x.dtype != acc:
-        x = x.to(acc)
-    if not x.is_contiguous():
-        x = x.contiguous()
+    with span("kernel.check"):
+        if data.device != dev or not data.is_contiguous():
+            raise ValueError(f"mf_spmv: lanes on {data.device} (contiguous: "
+                             f"{data.is_contiguous()}), x on {dev}")
+        if x.dtype != acc:
+            x = x.to(acc)
+        if not x.is_contiguous():
+            x = x.contiguous()
     n, ncols = launch.shape
     y = torch.empty(n, dtype=acc, device=dev)
-    fn = CB.kernel_function(NAME, _ARGTYPES)
-    with torch.cuda.device(dev):
-        rc = fn(CB.value_code(data, "data"), int(acc == torch.float64), CB.ptr(data),
-                data.shape[1], CB.ptr(launch.on(dev)), launch.n_diags, CB.ptr(x), ncols,
-                CB.ptr(y), n, CB.stream_handle(dev))
-    CB.raise_on_error(NAME, rc)
-    CB.count_launch(NAME)
+    CB.launch(NAME, _ARGTYPES, dev, CB.value_code(data, "data"), int(acc == torch.float64),
+              CB.ptr(data), data.shape[1], CB.ptr(launch.on(dev)), launch.n_diags, CB.ptr(x),
+              ncols, CB.ptr(y), n)
     return y
 
 

@@ -21,6 +21,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from . import cuda_build as CB
 from .accum import acc_dtype
 
@@ -273,22 +274,19 @@ def sell_spmv_arrays(chunk_ptr, chunk_width, col_idx, val, scale, perm, x,
         raise ValueError(f"sell_spmv: no kernel for device {x.device}")
     dev = x.device
     acc = acc_dtype(val.dtype, x.dtype)
-    x = x.to(acc).contiguous()
-    _check_operands(chunk_ptr, chunk_width, col_idx, val, scale, perm, C, dev)
-    _check_add_to(add_to, n_rows, acc, dev)
+    with span("kernel.check"):
+        x = x.to(acc).contiguous()
+        _check_operands(chunk_ptr, chunk_width, col_idx, val, scale, perm, C, dev)
+        _check_add_to(add_to, n_rows, acc, dev)
     if chunk_blocks is None:
         chunk_blocks = sell_chunk_blocks(chunk_ptr, chunk_width, C)
     blocks = chunk_blocks.on(dev)
     y = torch.empty(n_rows, dtype=acc, device=dev) if add_to is None else add_to
-    fn = CB.kernel_function(NAME, _ARGTYPES)
-    with torch.cuda.device(dev):
-        rc = fn(CB.value_code(val, "val"), int(acc == torch.float64),
-                CB.ptr(chunk_ptr), CB.ptr(chunk_width), CB.ptr(col_idx),
-                CB.ptr(val), CB.ptr(scale), CB.ptr(perm), CB.ptr(x), CB.ptr(y),
-                int(add_to is not None), nc, C, n_rows, CB.ptr(blocks),
-                chunk_blocks.n_blocks, CB.stream_handle(dev))
-    CB.raise_on_error(NAME, rc)
-    CB.count_launch(NAME)
+    CB.launch(NAME, _ARGTYPES, dev, CB.value_code(val, "val"), int(acc == torch.float64),
+              CB.ptr(chunk_ptr), CB.ptr(chunk_width), CB.ptr(col_idx),
+              CB.ptr(val), CB.ptr(scale), CB.ptr(perm), CB.ptr(x), CB.ptr(y),
+              int(add_to is not None), nc, C, n_rows, CB.ptr(blocks),
+              chunk_blocks.n_blocks)
     return y
 
 
@@ -313,12 +311,13 @@ def sell_spmm_arrays(chunk_ptr, chunk_width, col_idx, val, scale, perm, X,
                                perm, X, n_rows, C)
     if X.device.type != "cuda":
         raise ValueError(f"sell_spmm: no kernel for device {X.device}")
-    if X.dim() != 2:
-        raise ValueError(f"X must be (N, K), got shape {tuple(X.shape)}")
-    dev = X.device
-    acc = acc_dtype(val.dtype, X.dtype)
-    X = X.to(acc).contiguous()
-    _check_operands(chunk_ptr, chunk_width, col_idx, val, scale, perm, C, dev)
+    with span("kernel.check"):
+        if X.dim() != 2:
+            raise ValueError(f"X must be (N, K), got shape {tuple(X.shape)}")
+        dev = X.device
+        acc = acc_dtype(val.dtype, X.dtype)
+        X = X.to(acc).contiguous()
+        _check_operands(chunk_ptr, chunk_width, col_idx, val, scale, perm, C, dev)
     K = int(X.shape[1])
     Y = torch.empty((n_rows, K), dtype=acc, device=dev)
     if K == 0:
@@ -328,12 +327,8 @@ def sell_spmm_arrays(chunk_ptr, chunk_width, col_idx, val, scale, perm, X,
     order = schedule.on(dev)
     ct, tpr = sell_spmm_launch(K, Y.element_size(),
                                aligned=(X.data_ptr() | Y.data_ptr()) % 16 == 0)
-    fn = CB.kernel_function("sell_spmm", _MM_ARGTYPES)
-    with torch.cuda.device(dev):
-        rc = fn(CB.value_code(val, "val"), int(acc == torch.float64),
-                CB.ptr(chunk_ptr), CB.ptr(chunk_width), CB.ptr(col_idx),
-                CB.ptr(val), CB.ptr(scale), CB.ptr(perm), CB.ptr(order), CB.ptr(X),
-                CB.ptr(Y), nc, C, n_rows, K, ct, tpr, CB.stream_handle(dev))
-    CB.raise_on_error("sell_spmm", rc)
-    CB.count_launch("sell_spmm")
+    CB.launch("sell_spmm", _MM_ARGTYPES, dev, CB.value_code(val, "val"),
+              int(acc == torch.float64), CB.ptr(chunk_ptr), CB.ptr(chunk_width),
+              CB.ptr(col_idx), CB.ptr(val), CB.ptr(scale), CB.ptr(perm), CB.ptr(order),
+              CB.ptr(X), CB.ptr(Y), nc, C, n_rows, K, ct, tpr)
     return Y

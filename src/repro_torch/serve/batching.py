@@ -21,6 +21,12 @@ result stays on the device until the first ``result()`` / ``error()`` of
 the batch reads it.  Each future's value is a column *view* of the batch
 result ``Y``: it shares storage with its batch-mates, and writing into it
 writes into theirs.
+
+``submit`` and ``flush`` are the ``serve.submit`` / ``serve.flush`` spans
+(``utils.spans``), each carrying the number of the flush that takes the
+request.  Every request a flush takes, answered or shed, has its wait in
+the queue counted: summed per queue (``QueueStats.queue_wait_s``) and in
+one histogram over every queue (:func:`queue_wait_counts`).
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import torch
 
 from ..core.validate import validate_vector
 from ..testing import faults
+from ..utils.spans import span
 from .resilience import CircuitBreaker, KernelFault, ResiliencePolicy, execute_flush
 
 
@@ -161,6 +168,39 @@ class BatchPolicy:
     max_pending: int = 256
 
 
+#: the queue-wait histogram: ``QUEUE_WAIT_BINS`` bins of ``QUEUE_WAIT_BIN_S``
+#: (50 us to 10 ms), then one bin for every longer wait
+QUEUE_WAIT_BIN_S = 50e-6
+QUEUE_WAIT_BINS = 200
+_QUEUE_WAITS = [0] * (QUEUE_WAIT_BINS + 1)
+
+
+def queue_wait_counts() -> list:
+    """Copy of the queue-wait histogram over every queue of the process:
+    bin i counts the waits in ``[i, i + 1) * QUEUE_WAIT_BIN_S``, the last
+    bin every wait of ``QUEUE_WAIT_BINS * QUEUE_WAIT_BIN_S`` or more."""
+    return list(_QUEUE_WAITS)
+
+
+def reset_queue_wait_counts() -> None:
+    _QUEUE_WAITS[:] = [0] * len(_QUEUE_WAITS)
+
+
+def queue_wait_quantile(q: float) -> float:
+    """The upper edge of the histogram's bin that holds its ``q``-quantile, in
+    seconds: infinite in the last bin, NaN when nothing was counted."""
+    counts = queue_wait_counts()
+    total = sum(counts)
+    if not total:
+        return float("nan")
+    rank, seen = q * total, 0
+    for i, c in enumerate(counts):
+        seen += c
+        if c and seen >= rank:
+            break
+    return (i + 1) * QUEUE_WAIT_BIN_S if i < QUEUE_WAIT_BINS else float("inf")
+
+
 @dataclass
 class QueueStats:
     """Per-operator serving counters.
@@ -181,6 +221,14 @@ class QueueStats:
     degraded: int = 0          # backend-ladder steps taken by the breaker
     deadline_missed: int = 0   # requests shed with DeadlineExceeded
     failed: int = 0            # requests resolved with a structured error
+    queue_wait_s: float = 0.0  # enqueue to the flush that took it, summed
+
+    def record_wait(self, waited: float) -> None:
+        """Account one request's wait in the queue, from its enqueue to the
+        flush that took it (answered or shed): here and in the histogram of
+        every queue (:func:`queue_wait_counts`)."""
+        self.queue_wait_s += waited
+        _QUEUE_WAITS[min(int(waited / QUEUE_WAIT_BIN_S), QUEUE_WAIT_BINS)] += 1
 
     def record_batch(self, k: int, n_pad: int = 0) -> None:
         """Account one executed batch of k real columns (+ n_pad zeros) --
@@ -252,6 +300,7 @@ class OperatorQueue:
         self._n_cols = int(plan.report.shape[1])
         self._pending: deque = deque()  # (future, t_enqueue, timeout_s)
         self._rows = None  # staging block: pending request i is row i
+        self._flush_seq = 0  # the number of the next flush
         self.stats = QueueStats()
 
     def __len__(self) -> int:
@@ -268,44 +317,45 @@ class OperatorQueue:
         resilience policy's per-request deadline for this request (None
         keeps the default).
         """
-        # reject bad requests at the offending caller: a bad shape, a tensor
-        # on another device (or, under validate="strict", a NaN/Inf payload)
-        # reaching flush would poison the whole batch.  When the resilient
-        # flush runs the per-column finiteness check, the strict per-request
-        # read of a verdict (one wait for the device per submit) is left to
-        # it: a non-finite request then fails its own future at flush.
-        defer = (self.policy.width > 1 and self.resilience.enabled
-                 and self.resilience.check_finite)
-        x = validate_vector(self.plan._operand(x, "x"), self._n_cols,
-                            policy=self._validate, defer_finite=defer)
-        self.stats.requests += 1
-        if self.policy.width <= 1:
-            # fast path: a width-1 policy means batching cannot amortize
-            # anything -- execute exactly what plan(x) would, synchronously
+        with span("serve.submit", self._flush_seq):
+            # reject bad requests at the offending caller: a bad shape, a tensor
+            # on another device (or, under validate="strict", a NaN/Inf payload)
+            # reaching flush would poison the whole batch.  When the resilient
+            # flush runs the per-column finiteness check, the strict per-request
+            # read of a verdict (one wait for the device per submit) is left to
+            # it: a non-finite request then fails its own future at flush.
+            defer = (self.policy.width > 1 and self.resilience.enabled
+                     and self.resilience.check_finite)
+            x = validate_vector(self.plan._operand(x, "x"), self._n_cols,
+                                policy=self._validate, defer_finite=defer)
+            self.stats.requests += 1
+            if self.policy.width <= 1:
+                # fast path: a width-1 policy means batching cannot amortize
+                # anything -- execute exactly what plan(x) would, synchronously
+                fut = SpMVFuture(self)
+                fut._resolve(self.plan.spmv(x))
+                self.stats.fast_path_calls += 1
+                self.stats.calls += 1
+                return fut
+            try:
+                faults.fire("serve.queue_full", ctx={"pending": len(self._pending)},
+                            clock=self._clock)
+                full = len(self._pending) >= self.policy.max_pending
+            except BackpressureError:
+                full = True
+            if full:
+                self.stats.requests -= 1  # shed: the request was not admitted
+                self.stats.shed += 1
+                raise BackpressureError(
+                    f"{len(self._pending)} pending requests at the "
+                    f"max_pending={self.policy.max_pending} cap; drain with "
+                    f"pump()/flush() or raise the cap")
             fut = SpMVFuture(self)
-            fut._resolve(self.plan.spmv(x))
-            self.stats.fast_path_calls += 1
-            self.stats.calls += 1
+            self._stage(x, len(self._pending))
+            self._pending.append((fut, self._clock(), timeout_s))
+            if len(self._pending) >= self.policy.width or self._deadline_elapsed():
+                self.flush()
             return fut
-        try:
-            faults.fire("serve.queue_full", ctx={"pending": len(self._pending)},
-                        clock=self._clock)
-            full = len(self._pending) >= self.policy.max_pending
-        except BackpressureError:
-            full = True
-        if full:
-            self.stats.requests -= 1  # shed: the request was not admitted
-            self.stats.shed += 1
-            raise BackpressureError(
-                f"{len(self._pending)} pending requests at the "
-                f"max_pending={self.policy.max_pending} cap; drain with "
-                f"pump()/flush() or raise the cap")
-        fut = SpMVFuture(self)
-        self._stage(x, len(self._pending))
-        self._pending.append((fut, self._clock(), timeout_s))
-        if len(self._pending) >= self.policy.width or self._deadline_elapsed():
-            self.flush()
-        return fut
 
     def _stage(self, x: torch.Tensor, i: int) -> None:
         """Copy request ``x`` into row ``i`` of the staging block.
@@ -355,9 +405,11 @@ class OperatorQueue:
         """
         if not self._pending:
             return 0
-        entries = list(self._pending)
-        self._pending.clear()
-        return execute_flush(self, self._rows[:len(entries)], entries)
+        with span("serve.flush", self._flush_seq):
+            self._flush_seq += 1
+            entries = list(self._pending)
+            self._pending.clear()
+            return execute_flush(self, self._rows[:len(entries)], entries)
 
     # -- degradation ---------------------------------------------------------
 

@@ -376,8 +376,10 @@ class BatchingSpMVServer:
         ``batch_width`` / ``deadline_s``, the robustness counters --
         ``shed``, ``retried``, ``degraded``, ``deadline_missed``,
         ``failed``, ``breaker_trips`` and the remaining degrade ``ladder``
-        -- and the plan report's ``format``, ``kernel``, ``nnz``,
-        ``predicted_gflops`` and ``predicted_bytes_per_call``.  A
+        -- ``queue_wait_s`` (the seconds requests waited from enqueue to the
+        flush that took them, summed; the port's own) and the plan report's
+        ``format``, ``kernel``, ``nnz``, ``predicted_gflops`` and
+        ``predicted_bytes_per_call``.  A
         distributed operator adds the mesh-level ``variant``, ``parts``,
         ``slab_format``, ``imbalance``, ``local_fraction`` and
         ``collective_bytes_per_call`` (the modelled exchange).
@@ -398,6 +400,7 @@ class BatchingSpMVServer:
                 "degraded": st.degraded,
                 "deadline_missed": st.deadline_missed,
                 "failed": st.failed,
+                "queue_wait_s": st.queue_wait_s,
                 "breaker_trips": q.breaker.trips,
                 "ladder": tuple(q.ladder),
                 "pending": len(q),

@@ -193,24 +193,29 @@ def execute_flush(queue, rows, entries: list) -> int:
     answered.
 
     Raises only when the resilience policy is disabled (the legacy
-    behaviour: the exception propagates and the batch is stranded).
+    behaviour: the exception propagates and the batch is stranded).  Each
+    request's wait in the queue is accounted (``QueueStats.record_wait``),
+    a request shed for its deadline too.
     """
     pol = queue.resilience
     clock = queue._clock
     futs = [e[0] for e in entries]
+    now = clock()
 
     if not pol.enabled:
+        for _, t0, _ in entries:
+            queue.stats.record_wait(now - t0)
         faults.fire("serve.flush", ctx={"k": len(futs)}, clock=clock)
         _resolve_batch(queue, rows, futs, check_finite=False)
         return len(futs)
 
     # 1. deadline-aware shedding: abandon requests that already missed
     #    their SLO instead of spending a matrix stream on them
-    now = clock()
     live = []
     for i, (fut, t0, override) in enumerate(entries):
         limit = override if override is not None else pol.request_timeout_s
         waited = now - t0
+        queue.stats.record_wait(waited)
         if limit is not None and waited > limit:
             fut._fail(DeadlineExceeded(waited, limit))
             queue.stats.deadline_missed += 1

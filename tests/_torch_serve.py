@@ -44,6 +44,8 @@ COUNTERS = ("calls", "requests", "batches", "mean_batch_width", "padding_ratio",
             "fast_path_calls", "shed", "retried", "degraded", "deadline_missed",
             "failed", "breaker_trips", "ladder", "pending", "batch_width",
             "deadline_s", "format", "nnz")
+#: the ``stats()`` entries only the port has
+PORT_ONLY = frozenset({"queue_wait_s"})
 
 
 class FakeClock:
@@ -101,11 +103,13 @@ def run_both(scenario, *args, dtype=np.float32, **kw) -> tuple[dict, dict]:
 
 def assert_same_stats(ref: dict, port: dict) -> None:
     """Every counter equal, the kernel label through ``LABEL``, the model's
-    predictions equal to rounding."""
+    predictions equal to rounding; the port's own entries (``PORT_ONLY``)
+    beside them."""
     assert set(ref) == set(port)
     for name in ref:
         r, p = ref[name], port[name]
-        assert set(r) == set(p), name
+        assert set(r) == set(p) - PORT_ONLY and PORT_ONLY <= set(p), name
+        assert p["queue_wait_s"] >= 0.0, name
         for key in COUNTERS:
             assert r[key] == p[key], (name, key, r[key], p[key])
         assert LABEL[r["kernel"]] == p["kernel"], name

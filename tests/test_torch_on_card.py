@@ -620,6 +620,46 @@ def test_cuda_hybrid_fused_add_is_bitwise_the_composition(cuda_device, vd, xdt):
     assert torch.equal(got, want) and torch.isfinite(got).all()
 
 
+@pytest.mark.cuda
+def test_cuda_hybrid_plan_call_spans_on_the_card(cuda_device):
+    """Under the profiler a hybrid plan call is one ``plan.operand`` span and,
+    for each of its two kernels, one ``kernel.check`` and one
+    ``kernel.launch``, as many as the launch counters add; its output is
+    the composition of the two kernels bit for bit, as unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.formats import split_dia
+    from repro_torch.kernels import registry as R
+    from repro_torch.utils import spans
+    m = PF.with_value_dtype(split_dia(port_matrix("surrogate3000")), "f32")
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(m.shape[1])).to(
+        cuda_device)
+    plan = SpMVPlan.compile(m, PlanConfig(device=cuda_device))
+    plain = SpMVPlan.compile(m, PlanConfig(device=cuda_device, backend="torch"))
+    assert plan.report.kernel == "cuda"
+    ctx = R.KernelContext(device=cuda_device)
+    fd = R.build(m.dia, "dia", "spmv", "cuda", ctx).fn
+    fs = R.build(m.rest, "sell", "spmv", "cuda", ctx).fn
+    unprofiled = plan(x)
+    spans.reset()
+    before = sum(CB.launch_counts().values())
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = plan(x)
+        torch.cuda.synchronize()
+    launched = sum(CB.launch_counts().values()) - before
+    tot = spans.totals()
+    spans.reset()
+    assert tot["plan.operand"]["n"] == 1
+    assert tot["kernel.check"]["n"] == tot["kernel.launch"]["n"] == launched == 2
+    names = [e.name for e in prof.events()]
+    assert names.count("kernel.launch") == 2 and names.count("kernel.check") == 2
+    want = fd(x) + fs(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, unprofiled)
+    ref = plain(x)
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-12
+
+
 # --- kernel 8, the STREAM triad: tiles and tails --------------------------------
 
 
