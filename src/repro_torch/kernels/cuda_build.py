@@ -72,6 +72,14 @@ def count_launch(name: str) -> None:
     _LAUNCHES[name] += 1
 
 
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` (kernel -> launches; negative takes launches back) to
+    the counters: a CUDA graph's replay adds the launches its capture
+    counted, and the capture takes back its own."""
+    for name, k in counts.items():
+        _LAUNCHES[name] += k
+
+
 def launch_counts() -> dict:
     """Copy of the per-kernel launch counters."""
     return dict(_LAUNCHES)

@@ -24,8 +24,9 @@ Where each span sits and the benchmark metric that reads it:
   (``plan_check_us``);
 * ``kernel.launch`` -- ``cuda_build.launch``: entry point, device, stream,
   the ctypes call, its error code and the launch count (``launch_host_us``);
-* ``lanczos.step`` / ``lanczos.sync`` -- one Lanczos iteration, and its
-  read of alpha and beta on the host (``lanczos_enqueue_ms``,
+* ``lanczos.step`` / ``lanczos.sync`` -- one Lanczos iteration of the
+  eager loop, or on the card one replayed CUDA graph of ``K`` steps, and
+  its read of the alphas and betas on the host (``lanczos_enqueue_ms``,
   ``lanczos_sync_ms``);
 * ``serve.submit`` / ``serve.flush`` -- ``OperatorQueue.submit`` and
   ``.flush``; both carry the number of the flush that takes the request as
