@@ -5,8 +5,9 @@
 
 Builds the hand-written CUDA kernels of ``src/repro_torch/csrc`` -- one
 for each of the nine TPU kernels, two for the grouped GEMM (kernel 7: a
-wgmma + TMA kernel for bf16, a SIMT kernel for f32); eight sources, one
-``nvcc`` each, in parallel -- and drives the port's paths at the paper's
+wgmma + TMA kernel for bf16, a SIMT kernel for f32), and ``mf_product``,
+the generated electron x phonon Hamiltonian; nine sources, one ``nvcc``
+each, in parallel -- and drives the port's paths at the paper's
 size and, for the sparse-weight layer, at the widths of two models the
 repository configures:
 
@@ -36,7 +37,12 @@ repository configures:
    through ``SpMVPlan.compile(op, PlanConfig())`` and kernel 4: one launch
    an SpMV, the recurrence against the ``torch`` entry's, E0 against a
    ``csr`` plan's, and a profiler line of the plan call (one kernel, no
-   pad copy);
+   pad copy); (4d) the generated electron x phonon kernel ``mf_product``
+   on the exact HMeP (``HMEP_EXACT``: N = 1,201,200) against its composite
+   version (bit for bit) and cuSPARSE on the stored CSR, timed beside them,
+   the stored ``csr`` plan and its x + y bound, 64 Lanczos steps through
+   its plan (one launch an SpMV, E0 against the ``csr`` plan's), and on
+   4c's exact L = 6 operator against kernel 4;
 5. the STREAM calibration: the triad kernel against its plain version (bit
    for bit) and ``torch.addcmul`` (f32, f64, 2^26 per array, both timed),
    then ``card_chip()`` --
@@ -392,6 +398,129 @@ def device_split(torch, fn, what: str) -> tuple[dict, int]:
 
 #: the architecture phase 14 serves at full width
 LM_ARCH = "qwen3-0.6b"
+
+
+#: the paper's HMeP as the Holstein-Hubbard model: 6 periodic sites, 3 up +
+#: 3 down electrons, at most 8 phonons in total (400 x 3003 = 1,201,200 rows)
+HMEP_EXACT = {"L": 6, "n_up": 3, "n_dn": 3, "max_phonon": 8, "max_total_phonon": 8}
+
+
+def mf_product_phase(torch, dev, args, record, compare, ex6, xe6) -> dict:
+    """Phase 4d, kernel ``mf_product`` (the module docstring lists its
+    checks): the exact HMeP at ``HMEP_EXACT`` with ``args.hmep_cap`` phonons
+    at most, then 4c's exact L = 6 operator ``ex6`` (kernel 4's, no total
+    cap) at ``xe6`` through both kernels.  ``record`` and ``compare`` are
+    main's: a kernel row's fields, and a check against a reference
+    product."""
+    from repro_torch.core import matrices as M
+    from repro_torch.core.eigensolver import lanczos
+    from repro_torch.core.plan import SpMVPlan
+    from repro_torch.core.planconfig import PlanConfig
+    from repro_torch.kernels import cuda_build as CB
+    from repro_torch.kernels import mf_product as MP
+    from repro_torch.utils.hw import H100
+
+    def solve_ms(plan, n, v0, reps=5):
+        """Wall ms of one 96-step plain Lanczos solve through ``plan``."""
+        for _ in range(2):
+            lanczos(plan, n, m=96, v0=v0, reorthogonalize=False)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            lanczos(plan, n, m=96, v0=v0, reorthogonalize=False)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps * 1e3
+
+    t4d = time.perf_counter()
+    cap = args.hmep_cap
+    p = M.HolsteinHubbardParams(**{**HMEP_EXACT, "max_phonon": cap, "max_total_phonon": cap})
+    op = M.holstein_hubbard_operator(p)
+    build_s = time.perf_counter() - t4d
+    csr = M.holstein_hubbard_exact(p)
+    n = op.shape[0]
+    check(csr.shape == op.shape and csr.nnz == op.nnz,
+          f"mf_product: the operator has shape {op.shape} and {op.nnz} nnz, the CSR "
+          f"{csr.shape} and {csr.nnz}")
+    what = f"HMeP {n:,} rows f64"
+    launch = MP.product_launch(op)
+    tables = {k: v.to(dev) for k, v in launch.tables.items()}
+    x = torch.from_numpy(np.random.default_rng(21).standard_normal(n)).to(dev)
+    k = lambda: MP.mf_product_arrays(launch, x)  # noqa: E731
+    plain = lambda: MP.mf_product_plain(tables, x)  # noqa: E731
+    got = k()
+    err = compare("mf_product", what, got, plain())
+    check(torch.equal(got, plain()), f"mf_product {what}: not bit for bit its composite "
+                                     "version (the same sums in the same order)")
+    check(torch.equal(got, k()), f"mf_product {what}: two calls differ")
+    lib = torch.sparse_csr_tensor(csr.row_ptr.long(), csr.col_idx.long(), csr.val,
+                                  size=csr.shape).to(dev)
+    compare("mf_product", f"{what} vs cuSPARSE", got, lib @ x)
+    plan_c = SpMVPlan.compile(csr, PlanConfig(format="csr"))
+    check(plan_c.report.kernel == "cuda", f"HMeP csr plan runs {plan_c.report.kernel}")
+    # x read and y written once: the tables (287 KB) stay in the caches
+    bnd, by = bound_ms(H100, 2 * 8 * n, 2 * op.nnz, "float64")
+    row = {"rows": n, "nnz": op.nnz, "build_s": build_s, "max_abs_err": err,
+           "ms": time_ms(torch, k), "plain_ms": time_ms(torch, plain),
+           "library_ms": time_ms(torch, lambda: lib @ x),
+           "csr_plan_ms": time_ms(torch, lambda: plan_c(x)), "bound_ms": bnd, "bound_by": by}
+    del lib
+
+    plan = SpMVPlan.compile(op, PlanConfig(format="mf_product"))
+    check(plan.report.kernel == "cuda", f"mf_product plan runs {plan.report.kernel}")
+    check(torch.equal(plan(x), got), "mf_product: the plan call is not the kernel's output")
+    v0 = np.random.default_rng(22).standard_normal(n)
+    CB.reset_launch_counts()
+    res = lanczos(plan, n, m=args.lanczos_steps, v0=v0, reorthogonalize=False)
+    counts = CB.launch_counts()
+    check(counts.get("mf_product", 0) == res.n_spmv and sum(counts.values()) == res.n_spmv,
+          f"HMeP path: {counts} launches for {res.n_spmv} SpMVs (only mf_product, once each)")
+    res_c = lanczos(plan_c, n, m=args.lanczos_steps, v0=v0, reorthogonalize=False)
+    e0, e0c = float(res.eigenvalues[0]), float(res_c.eigenvalues[0])
+    de0 = abs(e0 - e0c) / max(1e-300, abs(e0c))
+    check(de0 <= 1e-8, f"HMeP path: E0 {e0!r} vs the csr plan's {e0c!r}")
+    v0t = torch.from_numpy(v0).to(dev)
+    row.update(launches=counts["mf_product"], steps=res.n_spmv, E0=e0, E0_csr_plan=e0c,
+               E0_rel_diff_vs_csr=de0, solve_ms=solve_ms(plan, n, v0t),
+               csr_solve_ms=solve_ms(plan_c, n, v0t))
+    record("mf_product", route="cuda", source="src/repro_torch/csrc/mf_product.cu",
+           replaces="none: the port's own (the exact HMeP's total phonon cap)",
+           max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=bnd,
+           bound_by=by, library_ms=row["library_ms"], launches=counts["mf_product"],
+           launches_per_lanczos_step=counts["mf_product"] / res.n_spmv,
+           shape=f"{what}, {op.nnz:,} nnz (bound: x read, y written)")
+    log(f"[mf_product] {what} ({op.nnz:,} nnz, tables built in {build_s:.3f} s): kernel "
+        f"{row['ms']:.4f} ms, composite {row['plain_ms']:.4f}, cuSPARSE f64 "
+        f"{row['library_ms']:.4f}, stored csr plan {row['csr_plan_ms']:.4f}; bound "
+        f"{bnd:.4f} ms by {by}; {res.n_spmv} Lanczos steps, {counts['mf_product']} launches, "
+        f"E0 {e0:.12f} (csr plan {e0c:.12f}, rel diff {de0:.1e}); a 96-step solve "
+        f"{row['solve_ms']:.3f} ms (csr plan {row['csr_solve_ms']:.3f})")
+    del plan, plan_c, res_c, tables
+
+    # the exact L = 6 operator of phase 4c: no total cap, so kernel 4 takes it too
+    p6 = M.HolsteinHubbardParams(L=args.exact_L, max_phonon=args.exact_phonon)
+    op6 = M.holstein_hubbard_operator(p6)
+    check(op6.shape == ex6.shape and op6.nnz == ex6.nnz,
+          f"mf_product: L = {args.exact_L} operator {op6.shape}, {op6.nnz} nnz; kernel 4's "
+          f"{ex6.shape}, {ex6.nnz}")
+    plan_6 = SpMVPlan.compile(op6, PlanConfig(format="mf_product"))
+    plan_4 = SpMVPlan.compile(ex6, PlanConfig())
+    check(plan_6.report.kernel == plan_4.report.kernel == "cuda",
+          f"L = {args.exact_L}: plans run {plan_6.report.kernel}, {plan_4.report.kernel}")
+    compare("mf_product", f"exact L={args.exact_L} vs kernel 4", plan_6(xe6), plan_4(xe6))
+    v06 = torch.from_numpy(np.random.default_rng(23).standard_normal(op6.shape[0])).to(dev)
+    row["exact_l6"] = {
+        "rows": op6.shape[0], "nnz": op6.nnz,
+        "mf_product_ms": time_ms(torch, lambda: plan_6(xe6)),
+        "kernel4_ms": time_ms(torch, lambda: plan_4(xe6)),
+        "mf_product_solve_ms": solve_ms(plan_6, op6.shape[0], v06),
+        "kernel4_solve_ms": solve_ms(plan_4, op6.shape[0], v06)}
+    r6 = row["exact_l6"]
+    log(f"[mf_product] exact L={args.exact_L} max_phonon={args.exact_phonon} "
+        f"({op6.shape[0]:,} rows): mf_product {r6['mf_product_ms']:.4f} ms, kernel 4 "
+        f"{r6['kernel4_ms']:.4f} ms a plan call; a 96-step solve {r6['mf_product_solve_ms']:.3f} "
+        f"against {r6['kernel4_solve_ms']:.3f} ms")
+    row["host_s"] = time.perf_counter() - t4d
+    return row
 
 
 def lm_phase(torch, dev, smi: str, record, compare) -> dict:
@@ -1475,6 +1604,9 @@ def main(argv=None) -> int:
                     help="chain sites of the exact Holstein-Hubbard operator of phases 2d, 4c, 7")
     ap.add_argument("--exact-phonon", type=int, default=5,
                     help="its phonon cutoff (L = 6, 5: 1,679,616 rows, the paper's scale)")
+    ap.add_argument("--hmep-cap", type=int, default=8,
+                    help="phonons in total (and on a site) of phase 4d's exact HMeP "
+                         "(8: N = 1,201,200)")
     ap.add_argument("--powerlaw-n", type=int, default=1 << 20,
                     help="rows of the power-law matrix of phase 7")
     ap.add_argument("--gemma-ff", type=int, default=24576,
@@ -1970,6 +2102,9 @@ def main(argv=None) -> int:
         f"{counts['mf_spmv']} mf_spmv launches; vs torch entry alpha {dax:.1e}, beta "
         f"{dbx:.1e}; plan call on the card (profiler): {prof_kernels or 'not measured'}")
     del plan_x, plan_xc, ref_x
+
+    # --- 4d. the exact HMeP through the generated kernel mf_product ------------
+    out["mf_product"] = mf_product_phase(torch, dev, args, record, compare, ex6, xe6)
 
     # --- 5. STREAM calibration: kernel 8, then card_chip() --------------------
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -3307,7 +3442,7 @@ def main(argv=None) -> int:
 
     # --- report -----------------------------------------------------------------
     names = ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv", "sell_spmm", "stream_triad",
-             "gather_scp", "bell_spmm", "grouped_gemm", "grouped_gemm_wgmma")
+             "gather_scp", "bell_spmm", "grouped_gemm", "grouped_gemm_wgmma", "mf_product")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # launches_serving: phase 12's count (0 for a kernel off the serving path);
@@ -3335,9 +3470,10 @@ def main(argv=None) -> int:
               if kr["name"] in ("bell_spmm", "sell_spmm")) > 0,
           "no sparse-weight kernel was launched on the LM path")
     for kr in kernels:
-        # bell_spmm runs when serve_sparse's advisor picks bsr (phase 17e checks it)
+        # bell_spmm runs when serve_sparse's advisor picks bsr (phase 17e checks it);
+        # no example builds the electron x phonon operator of mf_product
         check(kr["launches_examples"] > 0 or kr["name"] in (
-            "gather_scp", "grouped_gemm", "grouped_gemm_wgmma", "bell_spmm"),
+            "gather_scp", "grouped_gemm", "grouped_gemm_wgmma", "bell_spmm", "mf_product"),
               f"{kr['name']} was never launched by the examples")
     out["kernels"] = [rows[n] for n in names]
     for kr in out["kernels"]:

@@ -2,8 +2,9 @@
 
 Port of ``repro.core.formats``: COO, CSR (the paper's CRS), ELL, JDS (the
 paper's jagged diagonals), SELL-C-sigma (blocked JDS), BSR (block CSR with
-dense (bm, bn) blocks), DIA, the hybrid DIA + SELL split and the
-matrix-free generated operator, and ``matrix_stats`` (the pattern
+dense (bm, bn) blocks), DIA, the hybrid DIA + SELL split, the
+matrix-free generated operator, the electron x phonon operator generated
+from the Holstein-Hubbard model's tables, and ``matrix_stats`` (the pattern
 statistics the performance model reads).
 
 Containers are frozen dataclasses whose array fields are CPU tensors; the
@@ -945,6 +946,61 @@ def materialize(op: MatrixFreeOperator) -> CSR:
     vals = _cast(np.concatenate(vals_l), op.value_dtype)
     return CSR.from_coo(COO(np.concatenate(rows_l), np.concatenate(cols_l),
                             vals, op.shape))
+
+
+@dataclass(frozen=True)
+class ElectronPhononOperator:
+    """The Holstein-Hubbard Hamiltonian as the tables of its model, not as
+    stored entries: ``H = (T_el x I_ph) + diag + sum_i n_i(e) (b_i + b_i+)``
+    on the basis (electron state e, phonon state p), row ``e * n_ph + p``
+    (``core.matrices.holstein_hubbard_operator`` builds it).
+
+    * ``hop_target`` / ``hop_value`` -- ``(n_el, H)``: each electron state's
+      hops (both spins) as the target electron state and the signed ``-t``;
+      -1 pads a state with fewer than H hops.
+    * ``el_diag`` -- ``(n_el,)`` f64: ``U`` times the double occupancy.
+    * ``el_occ`` -- ``(n_el, L)`` int32: the site occupations n_i(e) in
+      {0, 1, 2}.
+    * ``ph_occ`` -- ``(n_ph, L)`` int32: the phonon occupations.
+    * ``ph_up`` / ``ph_dn`` -- ``(n_ph, L)`` int32: the rank of the phonon
+      state with one phonon more / less at site i, -1 outside the basis (the
+      per-site or the total cap).
+
+    Values are f64, computed from these as the CSR builder computes them:
+    ``U * docc + omega0 * sum(ph)`` on the diagonal, ``(g * omega0 * n_i) *
+    sqrt(n + 1)`` (or ``sqrt(n)``) on the ladder.  ``nnz`` counts the
+    nonzeros of the equivalent CSR (exact zeros left out)."""
+
+    shape: tuple[int, int]
+    hop_target: torch.Tensor
+    hop_value: torch.Tensor
+    el_diag: torch.Tensor
+    el_occ: torch.Tensor
+    ph_occ: torch.Tensor
+    ph_up: torch.Tensor
+    ph_dn: torch.Tensor
+    g: float
+    omega0: float
+    nnz: int
+    value_dtype: str = "f64"
+
+    @property
+    def n_el(self) -> int:
+        return int(self.el_diag.shape[0])
+
+    @property
+    def n_ph(self) -> int:
+        return int(self.ph_occ.shape[0])
+
+    @property
+    def n_sites(self) -> int:
+        return int(self.ph_occ.shape[1])
+
+    def table_bytes(self) -> int:
+        """Bytes of every table the operator holds."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.hop_target, self.hop_value, self.el_diag, self.el_occ, self.ph_occ,
+            self.ph_up, self.ph_dn))
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,10 @@ patterns.  Host numpy code, producing byte-for-byte the patterns of
 * ``holstein_hubbard_exact`` -- the real model Hamiltonian on an L-site
   chain with a truncated phonon space; small enough for dense
   diagonalization, so it validates the eigensolver.
+* ``holstein_hubbard_operator`` -- the same Hamiltonian as the tables of
+  its model (``formats.ElectronPhononOperator``), built without a CSR: the
+  ``mf_product`` kernels generate its entries; ``build_stats`` counts its
+  builds.
 * ``holstein_hubbard_surrogate`` -- the Fig. 5 statistics at any N: ~14
   nnz/row, ~60 % of nnz in 12 dense secondary diagonals, the rest scattered
   over a band, symmetric.
@@ -18,11 +22,15 @@ patterns.  Host numpy code, producing byte-for-byte the patterns of
 from __future__ import annotations
 
 import itertools
+import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from .formats import COO, CSR
+from ..utils.spans import span
+from .formats import COO, CSR, ElectronPhononOperator
 
 
 def _fermion_basis(L: int, n: int) -> np.ndarray:
@@ -124,6 +132,114 @@ def holstein_hubbard_exact(p: HolsteinHubbardParams = HolsteinHubbardParams()) -
 
     return CSR.from_coo(COO(np.asarray(rows, np.int32), np.asarray(cols, np.int32),
                             np.asarray(vals, np.float64), (dim, dim)))
+
+
+_BUILDS = {"builds": 0, "build_s": 0.0, "table_bytes": 0}
+_BUILDS_LOCK = threading.Lock()
+
+
+def build_stats() -> dict:
+    """{"builds": operators built by :func:`holstein_hubbard_operator`,
+    "build_s": their host seconds, "table_bytes": the bytes of their tables}
+    since the last :func:`reset_build_stats`."""
+    with _BUILDS_LOCK:
+        return dict(_BUILDS)
+
+
+def reset_build_stats() -> None:
+    with _BUILDS_LOCK:
+        _BUILDS.update(builds=0, build_s=0.0, table_bytes=0)
+
+
+def _phonon_ladder(L: int, max_phonon: int, max_total: int | None):
+    """The phonon states in ``itertools.product`` order after the total cap,
+    (n_ph, L), and for each state and site the rank of the state with one
+    phonon more and one less, -1 outside the basis."""
+    full = np.indices((max_phonon + 1,) * L, dtype=np.int64).reshape(L, -1).T
+    keep = (np.ones(len(full), bool) if max_total is None
+            else full.sum(axis=1) <= max_total)
+    ph = full[keep]
+    rank = np.full(len(full), -1, np.int64)
+    rank[keep] = np.arange(len(ph))
+    stride = (max_phonon + 1) ** np.arange(L - 1, -1, -1, dtype=np.int64)
+    fid = np.flatnonzero(keep)[:, None]   # each kept state's place in the product
+    can_up, can_dn = ph < max_phonon, ph > 0
+    up = np.where(can_up, rank[np.where(can_up, fid + stride, 0)], -1)
+    dn = np.where(can_dn, rank[np.where(can_dn, fid - stride, 0)], -1)
+    return ph, up, dn
+
+
+def holstein_hubbard_operator(
+        p: HolsteinHubbardParams = HolsteinHubbardParams()) -> ElectronPhononOperator:
+    """The Hamiltonian of ``holstein_hubbard_exact(p)`` as its model's tables
+    (``formats.ElectronPhononOperator``): the same rows, in the same order,
+    and the same values, with no CSR built.  The build is the
+    ``operator.build`` span and counts in :func:`build_stats`."""
+    with span("operator.build"):
+        t0 = time.perf_counter()
+        L = p.L
+        ups, dns = _fermion_basis(L, p.n_up), _fermion_basis(L, p.n_dn)
+        up_index = {int(s): k for k, s in enumerate(ups)}
+        dn_index = {int(s): k for k, s in enumerate(dns)}
+        n_dn_s = len(dns)
+        n_el = len(ups) * n_dn_s
+        bonds = [(i, i + 1) for i in range(L - 1)]
+        if p.periodic and L > 2:
+            bonds.append((L - 1, 0))
+
+        docc = np.zeros(n_el, np.int64)
+        el_occ = np.zeros((n_el, L), np.int32)
+        hops: list[list[tuple[int, float]]] = []
+        for iu, su in enumerate(ups):
+            su = int(su)
+            for idn, sd in enumerate(dns):
+                sd = int(sd)
+                e = iu * n_dn_s + idn
+                docc[e] = bin(su & sd).count("1")
+                el_occ[e] = [((su >> i) & 1) + ((sd >> i) & 1) for i in range(L)]
+                mine = []
+                # the CSR builder's order: bond by bond, both directions, up then down
+                for (a, b) in bonds:
+                    for (src, dst) in ((a, b), (b, a)):
+                        if (su >> src) & 1 and not (su >> dst) & 1:
+                            s2 = su ^ (1 << src) ^ (1 << dst)
+                            mine.append((up_index[s2] * n_dn_s + idn,
+                                         -p.t * _hop_sign(su, src, dst)))
+                        if (sd >> src) & 1 and not (sd >> dst) & 1:
+                            s2 = sd ^ (1 << src) ^ (1 << dst)
+                            mine.append((iu * n_dn_s + dn_index[s2],
+                                         -p.t * _hop_sign(sd, src, dst)))
+                hops.append([h for h in mine if h[1] != 0.0])
+        width = max((len(h) for h in hops), default=0)
+        hop_target = np.full((n_el, width), -1, np.int32)
+        hop_value = np.zeros((n_el, width), np.float64)
+        for e, mine in enumerate(hops):
+            for k, (tgt, v) in enumerate(mine):
+                hop_target[e, k], hop_value[e, k] = tgt, v
+
+        ph, up, dn = _phonon_ladder(L, p.max_phonon, p.max_total_phonon)
+        n_ph = len(ph)
+        el_diag = p.U * docc.astype(np.float64)
+        # nonzeros of the equivalent CSR: diagonal, hops, ladder
+        diag = el_diag[:, None] + p.omega0 * ph.sum(axis=1).astype(np.float64)[None, :]
+        coupled = (p.g * p.omega0 * el_occ) != 0.0                   # (n_el, L)
+        ladder = (up >= 0).sum(axis=0) + (dn >= 0).sum(axis=0)       # (L,)
+        nnz = (int(np.count_nonzero(diag)) + int((hop_target >= 0).sum()) * n_ph
+               + int((coupled * ladder[None, :]).sum()))
+        dim = n_el * n_ph
+        op = ElectronPhononOperator(
+            shape=(dim, dim), hop_target=torch.from_numpy(hop_target),
+            hop_value=torch.from_numpy(hop_value), el_diag=torch.from_numpy(el_diag),
+            el_occ=torch.from_numpy(el_occ),
+            ph_occ=torch.from_numpy(np.ascontiguousarray(ph, np.int32)),
+            ph_up=torch.from_numpy(np.ascontiguousarray(up, np.int32)),
+            ph_dn=torch.from_numpy(np.ascontiguousarray(dn, np.int32)),
+            g=float(p.g), omega0=float(p.omega0), nnz=nnz)
+        with _BUILDS_LOCK:
+            _BUILDS["builds"] += 1
+            _BUILDS["build_s"] += time.perf_counter() - t0
+            _BUILDS["table_bytes"] += op.table_bytes()
+        return op
 
 
 def holstein_hubbard_surrogate(

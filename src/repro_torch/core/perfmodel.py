@@ -172,7 +172,7 @@ def value_bytes_of(fmt_obj) -> int:
 
     if isinstance(fmt_obj, F.HybridDIA):
         fmt_obj = fmt_obj.rest
-    if isinstance(fmt_obj, F.MatrixFreeOperator):
+    if isinstance(fmt_obj, (F.MatrixFreeOperator, F.ElectronPhononOperator)):
         # generated-only operators store nothing; the widths follow the
         # declared storage precision (x / y / stored-lane streams)
         return int(F.VALUE_DTYPES.get(fmt_obj.value_dtype, torch.float32).itemsize)
@@ -426,6 +426,8 @@ def balance_of(fmt_obj, am: AccessModel | None = None, backend: str = "torch",
         return balance_dia(am, nd, occupancy=max(1e-3, occ))
     if isinstance(fmt_obj, F.MatrixFreeOperator):
         return balance_matrix_free(am, fmt_obj.n_stored, fmt_obj.shape[0], fmt_obj.nnz)
+    if isinstance(fmt_obj, F.ElectronPhononOperator):
+        return balance_matrix_free(am, 0, fmt_obj.shape[0], fmt_obj.nnz)
     if isinstance(fmt_obj, F.HybridDIA):
         n_dia, n_rest = fmt_obj.dia.nnz, fmt_obj.rest.nnz
         total = max(1, n_dia + n_rest)

@@ -43,11 +43,13 @@ from ..testing import faults
 from ..utils.hw import H100, ChipSpec, default_device
 from ..utils.spans import span
 from . import perfmodel as PM
-from .formats import BSR, COO, CSR, DIA, ELL, JDS, SELL, HybridDIA, MatrixFreeOperator
+from .formats import (BSR, COO, CSR, DIA, ELL, JDS, SELL, ElectronPhononOperator, HybridDIA,
+                      MatrixFreeOperator)
 from .planconfig import PlanConfig, coerce_config
 
 _FMT_NAMES = {COO: "coo", CSR: "csr", ELL: "ell", JDS: "jds", SELL: "sell", BSR: "bsr",
-              DIA: "dia", HybridDIA: "hybrid", MatrixFreeOperator: "matrix_free"}
+              DIA: "dia", HybridDIA: "hybrid", MatrixFreeOperator: "matrix_free",
+              ElectronPhononOperator: "mf_product"}
 
 
 @dataclass(frozen=True)
@@ -198,6 +200,11 @@ def resolve_format(matrix, format: str, *, chip: ChipSpec | None = None,
         return _convert_cached(matrix, choice.format, choice.convert_kwargs)
     if format == fmt:
         return matrix
+    if format == "mf_product":
+        raise ValueError(
+            f"cannot convert a {fmt} container to 'mf_product': that operator is "
+            "generated from its model's parameters, not recovered from stored entries; "
+            "build it with core.matrices.holstein_hubbard_operator(params)")
     if fmt not in ("csr", "coo"):
         raise ValueError(f"cannot convert a {fmt} container to {format!r}; "
                          "pass the CSR/COO source instead")

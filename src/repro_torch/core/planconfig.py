@@ -7,6 +7,8 @@ The reference's record, cut to the options the port carries, plus the
   "jds", "sell", "bsr", "dia", "hybrid", "matrix_free") converts a CSR/COO
   source first (bsr in (8, 128) blocks); ``"auto"`` lets
   ``perfmodel.select_format`` pick (with an autotuned SELL sigma).
+  "mf_product" names the electron x phonon operator
+  (``core.matrices.holstein_hubbard_operator``), which no source converts to.
 * ``value_dtype`` -- value-storage precision (f64, f32, bf16, f16,
   fp8_e4m3, int8); kernels accumulate in >= f32.
 * ``chip`` / ``am`` -- the roofline parameters (default: the H100 data

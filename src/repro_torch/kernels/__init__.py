@@ -1,8 +1,8 @@
 """Kernel implementations and the backend registry.
 
 Per-format modules (``coo``/``csr``/``ell``/``jds``/``sell``/``dia``/
-``bsr``/``hybrid``/``matrix_free``/``slab``) hold the composite PyTorch
-formulations, the loop oracles and the ``cuda`` entries;
+``bsr``/``hybrid``/``matrix_free``/``mf_product``/``slab``) hold the
+composite PyTorch formulations, the loop oracles and the ``cuda`` entries;
 ``*_spmv.py``/``bsr_spmm.py``/``moe_gemm.py``/``gather_bench.py`` wrap the
 hand-written CUDA kernels of ``csrc/`` (built by ``cuda_build`` at first
 use) beside their plain versions.  Every implementation registers with
@@ -29,6 +29,7 @@ from . import (  # noqa: F401,E402
     hybrid,
     jds,
     matrix_free,
+    mf_product,
     moe_gemm,
     ops,
     registry,

@@ -3,7 +3,7 @@
 Each source ``csrc/<source>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface and loaded with ``ctypes``;
 a source holds one kernel's C entry point, or several (``gather_bench.cu``
-holds ``stream_triad`` and ``gather_scp``): eight sources, nine kernels.
+holds ``stream_triad`` and ``gather_scp``): nine sources, ten kernels.
 The build runs at first use -- one ``nvcc`` per source, all started
 together -- into ``build/kernels/`` at
 the repository root (git-ignored).  A library's file name carries a hash of
@@ -13,9 +13,9 @@ loaded as it is.
 Every wrapper adds one to its entry of the launch counters where it
 launches its kernel, and nowhere else, so a run can show that its main path
 went through the kernels.  The grouped GEMM and the BELL SpMM also count
-the path that ran (``PATH_COUNTERS``).  The SELL, DIA, CSR and
-matrix-free SpMVs and the SELL SpMM launch through :func:`launch`, which
-counts the launch inside the ``kernel.launch`` span (``utils.spans``).
+the path that ran (``PATH_COUNTERS``).  The SELL, DIA, CSR, matrix-free
+and electron x phonon SpMVs and the SELL SpMM launch through :func:`launch`,
+which counts the launch inside the ``kernel.launch`` span (``utils.spans``).
 """
 from __future__ import annotations
 
@@ -40,7 +40,8 @@ SOURCES = {"sell_spmv": ("sell_spmv",), "dia_spmv": ("dia_spmv",),
            "csr_spmv": ("csr_spmv",), "mf_spmv": ("mf_spmv",),
            "sell_spmm": ("sell_spmm",),
            "gather_bench": ("stream_triad", "gather_scp"),
-           "bell_spmm": ("bell_spmm",), "grouped_gemm": ("grouped_gemm",)}
+           "bell_spmm": ("bell_spmm",), "grouped_gemm": ("grouped_gemm",),
+           "mf_product": ("mf_product",)}
 KERNELS = tuple(k for names in SOURCES.values() for k in names)
 SOURCE_OF = {k: src for src, names in SOURCES.items() for k in names}
 #: kernels whose entry point runs on several paths (two CUDA kernels, or

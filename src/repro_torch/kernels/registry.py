@@ -103,7 +103,8 @@ def _ensure_populated() -> None:
     if _POPULATED:
         return
     _POPULATED = True
-    from . import bsr, coo, csr, dia, ell, hybrid, jds, matrix_free, sell, slab  # noqa: F401
+    from . import (  # noqa: F401
+        bsr, coo, csr, dia, ell, hybrid, jds, matrix_free, mf_product, sell, slab)
 
 
 def probe_cuda(matrix, ctx: KernelContext) -> Capability:

@@ -32,7 +32,10 @@ Where each span sits and the benchmark metric that reads it:
   ``.flush``; both carry the number of the flush that takes the request as
   the range's ``flush`` argument (in a trace taken with
   ``record_shapes=True``), so a trace joins a submit to its flush
-  (``submit_host_us``, ``flush_host_us``).
+  (``submit_host_us``, ``flush_host_us``);
+* ``operator.build`` -- ``core.matrices.holstein_hubbard_operator``: the
+  electron x phonon operator's tables (its ``build_stats`` counter feeds
+  ``operator_build_ms``; a build in set-up runs under no profiler).
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ import torch
 
 #: every span the port opens
 NAMES = frozenset({"plan.operand", "kernel.check", "kernel.launch", "lanczos.step",
-                   "lanczos.sync", "serve.submit", "serve.flush"})
+                   "lanczos.sync", "serve.submit", "serve.flush", "operator.build"})
 
 _profiling = torch._C._autograd._profiler_enabled
 _range = torch._C._profiler._RecordFunctionFast

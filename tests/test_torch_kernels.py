@@ -189,6 +189,14 @@ def _wrapper_cases():
     Wg = torch.from_numpy(operand(36, 10, seed=16).reshape(3, 12, 10))
     yield ("grouped_gemm", lambda: moe_gemm.grouped_gemm_arrays(te, Xg, Wg, bt=8),
            lambda: moe_gemm.grouped_gemm_plain(te, Xg, Wg, 8))
+    from repro_torch.core.matrices import HolsteinHubbardParams, holstein_hubbard_operator
+    from repro_torch.kernels import mf_product
+    ep = holstein_hubbard_operator(HolsteinHubbardParams(L=4, n_up=2, n_dn=1, max_phonon=2,
+                                                         max_total_phonon=3))
+    pl = mf_product.product_launch(ep)
+    xe = torch.from_numpy(operand(ep.shape[0], seed=17, dtype=np.float64))
+    yield ("mf_product", lambda: mf_product.mf_product_arrays(pl, xe),
+           lambda: mf_product.mf_product_plain(pl.tables, xe))
 
 
 @pytest.mark.parametrize("idx", range(len(CB.KERNELS)), ids=CB.KERNELS)
