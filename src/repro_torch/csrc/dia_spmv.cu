@@ -11,46 +11,24 @@
 //
 // Design: one thread per row, looping over the diagonals.  data[k, row] and
 // x_pad[row + pad0 + off[k]] are both stride-1 across a warp, so every load
-// is coalesced; x_pad is zero-padded by the wrapper, so rows whose column
-// runs off the matrix read zeros (a bounds check on x_pad's length guards
-// against a caller's short padding; it never fires on the plan's path).
+// is coalesced.  A column that runs off either edge of x_pad reads zero
+// under a bounds check on x_pad's length.  The plan's path
+// (plan_launch.cu) passes x itself, unpadded, with pad0 = 0 and n_xpad = N,
+// so that check gives the edges' zeros there and no padded copy of x is
+// made; dia_spmv_arrays' callers pass an x zero-padded by the wrapper
+// (pad_x), whose zeros give the same products.
 // The offsets and the optional per-diagonal scales are small device arrays
-// (the TPU kernel
-// baked them in as static tuples); every thread of a block reads the same
-// entry, which the L1 broadcasts.  The products are added in ascending
-// diagonal order, as the Pallas kernel does.
-#include "common.cuh"
-
-template <typename T, typename A>
-__global__ void dia_spmv_kernel(const T* __restrict__ data, int64_t ld,
-                                const int32_t* __restrict__ offsets,
-                                const float* __restrict__ scales, int nd,
-                                const A* __restrict__ x_pad, int64_t n_xpad,
-                                int64_t pad0, A* __restrict__ y, int64_t n) {
-  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  A acc = 0;
-  for (int k = 0; k < nd; ++k) {
-    const int64_t c = row + pad0 + offsets[k];
-    const A xv = (c >= 0 && c < n_xpad) ? __ldg(x_pad + c) : (A)0;  // guard only
-    A contrib = widen<A>(data[k * ld + row]) * xv;
-    if (scales != nullptr) contrib *= (A)scales[k];
-    acc += contrib;
-  }
-  y[row] = acc;
-}
+// (the TPU kernel baked them in as static tuples); every thread of a block
+// reads the same entry, which the L1 broadcasts.  The products are added in
+// ascending diagonal order, as the Pallas kernel does.  The kernel and its
+// launcher are in dia_spmv.cuh.
+#include "dia_spmv.cuh"
 
 extern "C" int dia_spmv(int vcode, int acc64, const void* data, int64_t ld,
                         const void* offsets, const void* scales, int nd,
                         const void* x_pad, int64_t n_xpad, int64_t pad0,
                         void* y, int64_t n, void* stream) {
-  if (n == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-#define LAUNCH(T, A)                                                         \
-  dia_spmv_kernel<T, A><<<grid_for(n), kBlock, 0, s>>>(                      \
-      (const T*)data, ld, (const int32_t*)offsets, (const float*)scales, nd, \
-      (const A*)x_pad, n_xpad, pad0, (A*)y, n)
-  SPMV_DISPATCH(vcode, acc64, LAUNCH);
-#undef LAUNCH
-  return (int)cudaGetLastError();
+  const int rc = launch_dia_spmv(vcode, acc64, data, ld, offsets, scales, nd, x_pad, n_xpad,
+                                 pad0, y, n, (cudaStream_t)stream);
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }

@@ -5,7 +5,9 @@ Per-format modules (``coo``/``csr``/``ell``/``jds``/``sell``/``dia``/
 composite PyTorch formulations, the loop oracles and the ``cuda`` entries;
 ``*_spmv.py``/``bsr_spmm.py``/``moe_gemm.py``/``gather_bench.py`` wrap the
 hand-written CUDA kernels of ``csrc/`` (built by ``cuda_build`` at first
-use) beside their plain versions.  Every implementation registers with
+use) beside their plain versions; ``plan_launch`` launches the DIA and
+SELL kernels of a ``dia``, ``sell`` or ``hybrid`` SpMV on the card in one
+C call.  Every implementation registers with
 ``registry`` under a ``(format, op, backend)`` key; the plan,
 distributed-plan and serving layers dispatch through that table.
 """
@@ -32,6 +34,7 @@ from . import (  # noqa: F401,E402
     mf_product,
     moe_gemm,
     ops,
+    plan_launch,
     registry,
     sell,
     sell_spmv,

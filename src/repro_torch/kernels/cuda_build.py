@@ -3,7 +3,10 @@
 Each source ``csrc/<source>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface and loaded with ``ctypes``;
 a source holds one kernel's C entry point, or several (``gather_bench.cu``
-holds ``stream_triad`` and ``gather_scp``): nine sources, ten kernels.
+holds ``stream_triad`` and ``gather_scp``): nine sources, ten kernels.  A
+tenth source, ``plan_launch.cu``, holds no kernel of its own: its entry
+point ``plan_spmv`` launches kernels 2 and 1 from a launch record
+(``kernels/plan_launch.py``), which counts them under their own names.
 The build runs at first use -- one ``nvcc`` per source, all started
 together -- into ``build/kernels/`` at
 the repository root (git-ignored).  A library's file name carries a hash of
@@ -41,9 +44,12 @@ SOURCES = {"sell_spmv": ("sell_spmv",), "dia_spmv": ("dia_spmv",),
            "sell_spmm": ("sell_spmm",),
            "gather_bench": ("stream_triad", "gather_scp"),
            "bell_spmm": ("bell_spmm",), "grouped_gemm": ("grouped_gemm",),
-           "mf_product": ("mf_product",)}
+           "mf_product": ("mf_product",), "plan_launch": ()}
 KERNELS = tuple(k for names in SOURCES.values() for k in names)
-SOURCE_OF = {k: src for src, names in SOURCES.items() for k in names}
+#: C entry points that launch other sources' kernels -> their source; the
+#: kernels they launch are counted, not the entry point
+LAUNCHERS = {"plan_spmv": "plan_launch"}
+SOURCE_OF = {k: src for src, names in SOURCES.items() for k in names} | LAUNCHERS
 #: kernels whose entry point runs on several paths (two CUDA kernels, or
 #: one kernel's decode and wide instantiations): a launch counts under the
 #: entry point and under the path that ran

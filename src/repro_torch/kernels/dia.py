@@ -6,6 +6,7 @@ import numpy as np
 import torch
 
 from ..core.formats import DIA, _np
+from . import plan_launch as PL
 from . import dia_spmv as KP
 from .accum import acc_dtype
 from .cache import cached, register_stat, spmm_by_columns
@@ -144,9 +145,21 @@ def _build_spmm_loop(m: DIA, ctx) -> CompiledKernel:
     return CompiledKernel(spmm_by_columns(_loop_fn(m, ctx)), "loop")
 
 
+def spmv_part(m: DIA, ctx) -> PL.DiaPart:
+    """Kernel 2's operands of ``m`` on ``ctx.device``, for a launch record."""
+    data, offsets, scale, (_, _, n) = _dia_operands(m, ctx)
+    return PL.DiaPart(data, offsets, scale, n, m.shape[1])
+
+
 @register_kernel("dia", "spmv", "cuda",
-                 description="thread per row over the diagonals, padded x")
+                 description="thread per row over the diagonals; x unpadded, one C call "
+                             "from a launch record")
 def _build_spmv_cuda(m: DIA, ctx) -> CompiledKernel:
+    """On the card, the kernel on x itself from a launch record
+    (``plan_launch``); on the host, ``dia_spmv_arrays``' plain version on a
+    padded x."""
+    if ctx.device.type == "cuda":
+        return CompiledKernel(PL.spmv_fn((spmv_part(m, ctx),), ctx.device), "cuda")
     data, offsets, scale, (pad0, pad1, n) = _dia_operands(m, ctx)
 
     def fn(x):

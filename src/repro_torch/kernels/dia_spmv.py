@@ -58,6 +58,23 @@ def dia_spmv_plain(data, offsets, scales, x_pad, pad0: int, n: int, idx=None):
                                                           device=x_pad.device)
 
 
+def check_operands(data, offsets, scales, n: int, dev) -> None:
+    """Raise unless the kernel can read the (nd, ld) ``data``, its int32
+    ``offsets`` and f32 ``scales`` (or None) on ``dev`` for ``n`` rows:
+    ``dia_spmv_arrays``' checks of the matrix, which a plan's launch record
+    (``plan_launch``) runs once."""
+    CB.check_tensor(data, "data", dev, None, 2)
+    CB.check_tensor(offsets, "offsets", dev, (torch.int32,), 1)
+    nd, ld = data.shape
+    if offsets.shape[0] != nd or ld < n:
+        raise ValueError(f"data {tuple(data.shape)} does not fit {offsets.shape[0]} "
+                         f"offsets and {n} rows")
+    if scales is not None:
+        CB.check_tensor(scales, "scales", dev, (torch.float32,), 1)
+        if scales.shape[0] != nd:
+            raise ValueError(f"{scales.shape[0]} scales for {nd} diagonals")
+
+
 def dia_spmv_arrays(data, offsets, scales, x_pad, pad0: int, n: int):
     """DIA SpMV: the CUDA kernel for a CUDA ``x_pad``, the plain version for
     a CPU one.  ``data`` is (nd, ld) with ld >= n."""
@@ -69,19 +86,11 @@ def dia_spmv_arrays(data, offsets, scales, x_pad, pad0: int, n: int):
     acc = acc_dtype(data.dtype, x_pad.dtype)
     with span("kernel.check"):
         x_pad = x_pad.to(acc).contiguous()
-        CB.check_tensor(data, "data", dev, None, 2)
-        CB.check_tensor(offsets, "offsets", dev, (torch.int32,), 1)
-        nd, ld = data.shape
-        if offsets.shape[0] != nd or ld < n:
-            raise ValueError(f"data {tuple(data.shape)} does not fit {offsets.shape[0]} "
-                             f"offsets and {n} rows")
-        if scales is not None:
-            CB.check_tensor(scales, "scales", dev, (torch.float32,), 1)
-            if scales.shape[0] != nd:
-                raise ValueError(f"{scales.shape[0]} scales for {nd} diagonals")
+        check_operands(data, offsets, scales, n, dev)
         CB.check_tensor(x_pad, "x_pad", dev, None, 1)
         if pad0 < 0:
             raise ValueError(f"pad0={pad0} < 0")
+    nd, ld = data.shape
     y = torch.empty(n, dtype=acc, device=dev)
     CB.launch(NAME, _ARGTYPES, dev, CB.value_code(data, "data"), int(acc == torch.float64),
               CB.ptr(data), ld, CB.ptr(offsets), CB.ptr(scales), nd,

@@ -2,14 +2,16 @@
 
 The ``cuda`` SpMV runs the DIA kernel, then the SELL kernel with the DIA
 output as its ``add_to``: the same sum, bit for bit, as the reference's
-Pallas hybrid, which adds its DIA and SELL kernels' outputs.  There is
-no ``cuda`` SpMM, as the reference has no Pallas hybrid SpMM (the DIA part
-has no multi-vector kernel): the SpMM runs the ``torch`` composition.
+Pallas hybrid, which adds its DIA and SELL kernels' outputs.  On the card
+the two launch in one C call from a launch record (``plan_launch``).  There
+is no ``cuda`` SpMM, as the reference has no Pallas hybrid SpMM (the DIA
+part has no multi-vector kernel): the SpMM runs the ``torch`` composition.
 """
 from __future__ import annotations
 
 from ..core.formats import HybridDIA
 from . import dia as KD
+from . import plan_launch as PL
 from . import sell as KS
 from .cache import spmm_by_columns
 from .registry import CompiledKernel, container_fn, register_kernel
@@ -63,9 +65,12 @@ def _build_spmm_loop(m: HybridDIA, ctx) -> CompiledKernel:
                  description="DIA kernel, then the SELL kernel adding its rows into "
                              "the DIA output in place")
 def _build_spmv_cuda(m: HybridDIA, ctx) -> CompiledKernel:
-    fd = KD._build_spmv_cuda(m.dia, ctx).fn
     if not m.rest.nnz:
-        return CompiledKernel(fd, "cuda")
+        return KD._build_spmv_cuda(m.dia, ctx)
+    if ctx.device.type == "cuda":
+        parts = (KD.spmv_part(m.dia, ctx), KS.spmv_part(m.rest, ctx))
+        return CompiledKernel(PL.spmv_fn(parts, ctx.device), "cuda")
+    fd = KD._build_spmv_cuda(m.dia, ctx).fn
     fs = KS._build_spmv_cuda(m.rest, ctx).fn
     # each real row is written by one thread of the SELL kernel, so the add
     # runs in its store: no separate add pass, and no third (n,) buffer

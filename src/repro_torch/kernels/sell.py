@@ -16,6 +16,7 @@ import torch
 
 from ..core import perfmodel as PM
 from ..core.formats import SELL, _np
+from . import plan_launch as PL
 from . import sell_spmv as KP
 from .accum import acc_dtype
 from .cache import cached, register_stat, spmm_by_columns
@@ -220,17 +221,25 @@ def _build_cuda(m: SELL, ctx, kernel, **kw) -> CompiledKernel:
                                                       **kw, **call_kw), "cuda")
 
 
+def spmv_part(m: SELL, ctx) -> PL.SellPart:
+    """Kernel 1's operands of ``m`` on ``ctx.device`` and its cached
+    ``ChunkBlocks``, for a launch record."""
+    _check_indices(m)
+    return PL.SellPart(*_operands(m, ctx), m.shape[0], m.C, sell_chunk_blocks(m))
+
+
 @register_kernel("sell", "spmv", "cuda",
                  description="blocks of whole chunks, span streamed coalesced, rows "
                              "summed from shared memory; fused scale + inverse "
                              "permutation (+ add_to)")
 def _build_spmv_cuda(m: SELL, ctx) -> CompiledKernel:
-    """The kernel on the container's cached ``ChunkBlocks``; the compiled
-    function also takes ``add_to`` (``sell_spmv_arrays``)."""
-    blocks = sell_chunk_blocks(m)
+    """The kernel on the container's cached ``ChunkBlocks``: on the card from
+    a launch record (``plan_launch``; the blocks go to the card when it is
+    built, at plan compile), on the host ``sell_spmv_arrays``' plain
+    version, whose function also takes ``add_to``."""
     if ctx.device.type == "cuda":
-        blocks.on(ctx.device)  # to the card at plan compile, not on the first SpMV
-    return _build_cuda(m, ctx, KP.sell_spmv_arrays, chunk_blocks=blocks)
+        return CompiledKernel(PL.spmv_fn((spmv_part(m, ctx),), ctx.device), "cuda")
+    return _build_cuda(m, ctx, KP.sell_spmv_arrays, chunk_blocks=sell_chunk_blocks(m))
 
 
 @register_kernel("sell", "spmm", "cuda",

@@ -228,7 +228,10 @@ def sell_spmm_plain(chunk_ptr, chunk_width, col_idx, val, scale, perm, X,
                        ).index_copy_(0, perm[:n_rows].long(), tiles[:n_rows])
 
 
-def _check_operands(chunk_ptr, chunk_width, col_idx, val, scale, perm, C, dev):
+def check_operands(chunk_ptr, chunk_width, col_idx, val, scale, perm, C, dev) -> None:
+    """Raise unless the SELL kernels can read the matrix's arrays on ``dev``:
+    ``sell_spmv_arrays``' and ``sell_spmm_arrays``' checks of the matrix,
+    which a plan's launch record (``plan_launch``) runs once."""
     CB.check_tensor(chunk_ptr, "chunk_ptr", dev, (torch.int64,), 1)
     CB.check_tensor(chunk_width, "chunk_width", dev, (torch.int32,), 1)
     CB.check_tensor(col_idx, "col_idx", dev, (torch.int32,), 1)
@@ -248,6 +251,18 @@ def _check_operands(chunk_ptr, chunk_width, col_idx, val, scale, perm, C, dev):
             raise ValueError(f"{scale.shape[0]} scales for {nc} chunks")
 
 
+def check_chunk_blocks(chunk_blocks, n_chunks: int, C: int) -> None:
+    """Raise unless ``chunk_blocks`` is a ``ChunkBlocks`` of ``n_chunks``
+    chunks of ``C`` rows."""
+    if not isinstance(chunk_blocks, ChunkBlocks):
+        raise TypeError(f"sell_spmv: chunk_blocks must be a ChunkBlocks "
+                        f"(sell_chunk_blocks(chunk_ptr, chunk_width, C)), got "
+                        f"{type(chunk_blocks).__name__}")
+    if (chunk_blocks.n_chunks, chunk_blocks.C) != (n_chunks, C):
+        raise ValueError(f"sell_spmv: chunk_blocks cover {chunk_blocks.n_chunks} chunks "
+                         f"of {chunk_blocks.C} rows, the matrix has {n_chunks} of {C}")
+
+
 def sell_spmv_arrays(chunk_ptr, chunk_width, col_idx, val, scale, perm, x,
                      n_rows: int, C: int, chunk_blocks: ChunkBlocks | None = None,
                      add_to=None):
@@ -260,13 +275,7 @@ def sell_spmv_arrays(chunk_ptr, chunk_width, col_idx, val, scale, perm, x,
     stores ``add_to[row] + y[row]`` into it in place and returns it."""
     nc = chunk_width.shape[0]
     if chunk_blocks is not None:
-        if not isinstance(chunk_blocks, ChunkBlocks):
-            raise TypeError(f"sell_spmv: chunk_blocks must be a ChunkBlocks "
-                            f"(sell_chunk_blocks(chunk_ptr, chunk_width, C)), got "
-                            f"{type(chunk_blocks).__name__}")
-        if (chunk_blocks.n_chunks, chunk_blocks.C) != (nc, C):
-            raise ValueError(f"sell_spmv: chunk_blocks cover {chunk_blocks.n_chunks} chunks "
-                             f"of {chunk_blocks.C} rows, the matrix has {nc} of {C}")
+        check_chunk_blocks(chunk_blocks, nc, C)
     if x.device.type == "cpu":
         return sell_spmv_plain(chunk_ptr, chunk_width, col_idx, val, scale,
                                perm, x, n_rows, C, add_to=add_to)
@@ -276,7 +285,7 @@ def sell_spmv_arrays(chunk_ptr, chunk_width, col_idx, val, scale, perm, x,
     acc = acc_dtype(val.dtype, x.dtype)
     with span("kernel.check"):
         x = x.to(acc).contiguous()
-        _check_operands(chunk_ptr, chunk_width, col_idx, val, scale, perm, C, dev)
+        check_operands(chunk_ptr, chunk_width, col_idx, val, scale, perm, C, dev)
         _check_add_to(add_to, n_rows, acc, dev)
     if chunk_blocks is None:
         chunk_blocks = sell_chunk_blocks(chunk_ptr, chunk_width, C)
@@ -317,7 +326,7 @@ def sell_spmm_arrays(chunk_ptr, chunk_width, col_idx, val, scale, perm, X,
         dev = X.device
         acc = acc_dtype(val.dtype, X.dtype)
         X = X.to(acc).contiguous()
-        _check_operands(chunk_ptr, chunk_width, col_idx, val, scale, perm, C, dev)
+        check_operands(chunk_ptr, chunk_width, col_idx, val, scale, perm, C, dev)
     K = int(X.shape[1])
     Y = torch.empty((n_rows, K), dtype=acc, device=dev)
     if K == 0:

@@ -96,7 +96,15 @@ _KERNEL_GATHER = "prod[i] = widen<A>(vv[k]) * __ldg(x + cc[k]);"
 _KERNEL_PERM = "row = perm[c * C + lane];"
 
 
+def inline_kernel(src: str) -> str:
+    """``src`` (``csrc/sell_spmv.cu``) with the kernel's header pasted in
+    place of its ``#include``, so that a variant's edits reach the kernel."""
+    header = (CB.CSRC / "sell_spmv.cuh").read_text().replace("#pragma once\n", "")
+    return src.replace('#include "sell_spmv.cuh"', header)
+
+
 def _variants(kernel_src: str) -> list:
+    kernel_src = inline_kernel(kernel_src)
     return [
         ("kernel", kernel_src, [], True),
         ("coalesced_x", kernel_src, [(_KERNEL_GATHER, "prod[i] = widen<A>(vv[k]) * __ldg("

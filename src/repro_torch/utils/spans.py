@@ -9,7 +9,9 @@ the clock of the device operations it enqueued, and is written out with
 the profiler's trace.  It also adds its duration to in-memory totals per
 name (:func:`totals`): the count, the total seconds and the self seconds,
 the duration less the part its child spans cover (a per-thread stack, the
-host's monotonic clock).
+host's monotonic clock).  A span opened with ``n`` counts ``n`` times over
+the same duration: one C call that launches two kernels is one range and
+two ``kernel.launch`` counts, so the totals give the host time a launch.
 
 With no profiler running, ``span`` returns one shared object that does
 nothing: one check of the profiler's state (~0.1 us), no allocation, no
@@ -23,7 +25,9 @@ Where each span sits and the benchmark metric that reads it:
 * ``kernel.check`` -- a CUDA wrapper's operand checks before its launch
   (``plan_check_us``);
 * ``kernel.launch`` -- ``cuda_build.launch``: entry point, device, stream,
-  the ctypes call, its error code and the launch count (``launch_host_us``);
+  the ctypes call, its error code and the launch count; a launch record's
+  one C call for a ``dia``, ``sell`` or ``hybrid`` SpMV on the card
+  (``kernels.plan_launch``), counted once a kernel (``launch_host_us``);
 * ``lanczos.step`` / ``lanczos.sync`` -- one Lanczos iteration of the
   eager loop, or on the card one replayed CUDA graph of ``K`` steps, and
   its read of the alphas and betas on the host (``lanczos_enqueue_ms``,
@@ -59,11 +63,12 @@ _OFF = contextlib.nullcontext()  # the span while no profiler runs
 
 
 class _Span:
-    __slots__ = ("name", "flush", "_range", "_stack", "_t0", "_children")
+    __slots__ = ("name", "flush", "n", "_range", "_stack", "_t0", "_children")
 
-    def __init__(self, name: str, flush: int | None):
+    def __init__(self, name: str, flush: int | None, n: int = 1):
         self.name = name
         self.flush = flush
+        self.n = n
 
     def __enter__(self):
         try:
@@ -90,18 +95,19 @@ class _Span:
             tot = _TOTALS.get(self.name)
             if tot is None:
                 tot = _TOTALS[self.name] = [0, 0.0, 0.0]
-            tot[0] += 1
+            tot[0] += self.n
             tot[1] += dt
             tot[2] += dt - self._children
         return False
 
 
-def span(name: str, flush: int | None = None):
+def span(name: str, flush: int | None = None, n: int = 1):
     """A context manager for the span ``name``; ``flush``, the number of the
-    flush a server span belongs to, becomes the range's ``flush`` argument."""
+    flush a server span belongs to, becomes the range's ``flush`` argument;
+    the span counts ``n`` times in :func:`totals`."""
     if not _profiling():
         return _OFF
-    return _Span(name, flush)
+    return _Span(name, flush, n)
 
 
 def totals() -> dict:

@@ -192,6 +192,19 @@ def test_a_span_left_by_an_exception_is_recorded_and_closed():
     assert tot["plan.operand"]["self_s"] == pytest.approx(tot["plan.operand"]["total_s"])
 
 
+def test_a_span_of_n_counts_n_times_over_one_range():
+    # one C call that launches two kernels: one range, two launches' counts
+    with _profiled() as prof:
+        with spans.span("kernel.launch", n=2):
+            time.sleep(0.002)
+        with spans.span("kernel.launch"):
+            pass
+    tot = spans.totals()["kernel.launch"]
+    assert tot["n"] == 3 and tot["total_s"] >= 0.002
+    assert tot["self_s"] == pytest.approx(tot["total_s"])
+    assert len(_events(prof, "kernel.launch")) == 2
+
+
 # --- the program's spans under the profiler ---------------------------------------
 
 
