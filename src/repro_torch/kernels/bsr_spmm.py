@@ -283,15 +283,10 @@ def bell_spmm_arrays(bcols, blocks, X, scale=None, row_nblocks=None,
         return Y
     L = bell_launch(bm, bk, N, Y.element_size(), blocks.element_size())
     P = bell_panels(X, L.ntile)
-    fn = CB.kernel_function(NAME, _ARGTYPES)
-    with torch.cuda.device(dev):
-        rc = fn(CB.value_code(blocks, "blocks"), int(acc == torch.float64),
-                CB.ptr(bcols), CB.ptr(blocks), CB.ptr(scale), CB.ptr(row_nblocks),
-                CB.ptr(P), CB.ptr(Y), nbr, nbpp, bm, bk, M, int(X.shape[0]), N, L.cw,
-                L.rm, L.ntile, L.G, L.cl, L.uh, L.gw, L.stages, CB.stream_handle(dev))
-    CB.raise_on_error(NAME, rc)
-    CB.count_launch(NAME)
-    CB.count_launch(f"{NAME}_{L.path}")
+    CB.launch(NAME, _ARGTYPES, dev, CB.value_code(blocks, "blocks"), int(acc == torch.float64),
+              CB.ptr(bcols), CB.ptr(blocks), CB.ptr(scale), CB.ptr(row_nblocks), CB.ptr(P),
+              CB.ptr(Y), nbr, nbpp, bm, bk, M, int(X.shape[0]), N, L.cw, L.rm, L.ntile, L.G,
+              L.cl, L.uh, L.gw, L.stages, counts=(NAME, f"{NAME}_{L.path}"))
     return Y
 
 

@@ -1,4 +1,4 @@
-"""Build, load and count the hand-written CUDA kernels of ``csrc/``.
+"""Build, load, launch and count the hand-written CUDA kernels of ``csrc/``.
 
 Each source ``csrc/<source>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface and loaded with ``ctypes``;
@@ -13,12 +13,14 @@ the repository root (git-ignored).  A library's file name carries a hash of
 its source and flags, so an edited kernel is rebuilt and an unchanged one is
 loaded as it is.
 
-Every wrapper adds one to its entry of the launch counters where it
-launches its kernel, and nowhere else, so a run can show that its main path
-went through the kernels.  The grouped GEMM and the BELL SpMM also count
-the path that ran (``PATH_COUNTERS``).  The SELL, DIA, CSR, matrix-free
-and electron x phonon SpMVs and the SELL SpMM launch through :func:`launch`,
-which counts the launch inside the ``kernel.launch`` span (``utils.spans``).
+Every kernel module launches through :func:`launch`, and no other module
+looks up an entry point or a stream: it passes the device's current stream,
+enters the device where it is not current, raises on the entry point's
+return code (:func:`raise_on_error`, one convention for every entry point)
+and adds one to the launch counters under each name it is given, so a run
+can show that its main path went through the kernels.  The grouped GEMM and
+the BELL SpMM also count the path that ran (``PATH_COUNTERS``).  All of it
+is one ``kernel.launch`` span (``utils.spans``).
 """
 from __future__ import annotations
 
@@ -63,6 +65,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: value-storage dtype -> the code the C entry points dispatch on
 VALUE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2,
                torch.float16: 3, torch.float8_e4m3fn: 4, torch.int8: 5}
+#: ``kTensorMapError`` of grouped_gemm.cu: a return code at or above it is a
+#: failed ``cuTensorMapEncodeTiled``, its ``CUresult`` added
+TENSOR_MAP_ERROR = 1 << 20
 
 _LAUNCHES = {name: 0 for name in KERNELS + PATH_COUNTERS}
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -226,22 +231,37 @@ def value_code(t: torch.Tensor, what: str) -> int:
 
 
 def raise_on_error(name: str, rc: int) -> None:
+    """Raise on an entry point's non-zero return code: a ``cudaError_t``, or
+    ``TENSOR_MAP_ERROR`` plus the ``CUresult`` of a failed
+    ``cuTensorMapEncodeTiled``."""
+    if rc >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with CUresult "
+                           f"{rc - TENSOR_MAP_ERROR}")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc} "
                            "(cudaGetLastError after the launch)")
 
 
-def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def launch(name: str, argtypes: list, device: torch.device, *args) -> None:
+def launch(name: str, argtypes: list, device: torch.device, *args,
+           counts: tuple[str, ...] | None = None) -> None:
     """Launch the C entry point ``name`` (``kernel_function``) on ``device``
-    with ``args`` and, last, the device's current stream; raise on a failed
-    launch, else count it.  All of it is the ``kernel.launch`` span."""
-    with span("kernel.launch"):
+    (a CUDA device with its index) with ``args`` and, last, the device's
+    current stream, the capturing one under graph capture; raise on a failed
+    launch, else count one launch under each name of ``counts`` (default
+    ``(name,)``).  All of it is one ``kernel.launch`` span of
+    ``len(counts)``."""
+    counts = (name,) if counts is None else counts
+    with span("kernel.launch", n=len(counts)):
         fn = kernel_function(name, argtypes)
-        with torch.cuda.device(device):
-            rc = fn(*args, stream_handle(device))
+        index = device.index
+        # the handle alone: ``current_stream(device).cuda_stream`` builds a
+        # Stream object (5.2 against 0.13 us a call on an H100's host)
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        if torch.cuda.current_device() == index:
+            rc = fn(*args, stream)
+        else:
+            with torch.cuda.device(index):
+                rc = fn(*args, stream)
         raise_on_error(name, rc)
-        count_launch(name)
+        for c in counts:
+            count_launch(c)

@@ -155,16 +155,6 @@ def spmv_part(m: DIA, ctx) -> PL.DiaPart:
                  description="thread per row over the diagonals; x unpadded, one C call "
                              "from a launch record")
 def _build_spmv_cuda(m: DIA, ctx) -> CompiledKernel:
-    """On the card, the kernel on x itself from a launch record
-    (``plan_launch``); on the host, ``dia_spmv_arrays``' plain version on a
-    padded x."""
-    if ctx.device.type == "cuda":
-        return CompiledKernel(PL.spmv_fn((spmv_part(m, ctx),), ctx.device), "cuda")
-    data, offsets, scale, (pad0, pad1, n) = _dia_operands(m, ctx)
-
-    def fn(x):
-        acc = acc_dtype(data.dtype, x.dtype)
-        return KP.dia_spmv_arrays(data, offsets, scale,
-                                  KP.pad_x(x, pad0, pad1, acc), pad0, n)
-
-    return CompiledKernel(fn, "cuda")
+    """The kernel on x itself from a launch record (``plan_launch``).  Built
+    on the card only: the entry's probe refuses any other device."""
+    return CompiledKernel(PL.spmv_fn((spmv_part(m, ctx),), ctx.device), "cuda")

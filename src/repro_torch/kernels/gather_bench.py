@@ -77,12 +77,8 @@ def stream_triad(a, b, c):
         raise ValueError(f"a, b, c lengths differ: {n}, {b.shape[0]}, {c.shape[0]}")
     o = torch.empty_like(a)
     vec = int(all(t.data_ptr() % 16 == 0 for t in (a, b, c, o)))
-    fn = CB.kernel_function("stream_triad", _TRIAD_ARGTYPES)
-    with torch.cuda.device(dev):
-        rc = fn(int(dtype == torch.float64), CB.ptr(a), CB.ptr(b), CB.ptr(c),
-                CB.ptr(o), n, vec, CB.stream_handle(dev))
-    CB.raise_on_error("stream_triad", rc)
-    CB.count_launch("stream_triad")
+    CB.launch("stream_triad", _TRIAD_ARGTYPES, dev, int(dtype == torch.float64), CB.ptr(a),
+              CB.ptr(b), CB.ptr(c), CB.ptr(o), n, vec)
     return o
 
 
@@ -104,12 +100,8 @@ def gather_scp(a, idx, x):
     if idx.shape[0] != n:
         raise ValueError(f"a has {n} elements, idx {idx.shape[0]}")
     o = torch.empty_like(a)
-    fn = CB.kernel_function("gather_scp", _GATHER_ARGTYPES)
-    with torch.cuda.device(dev):
-        rc = fn(int(dtype == torch.float64), CB.ptr(a), CB.ptr(idx), CB.ptr(x),
-                CB.ptr(o), n, stream_blocks(dev, n), CB.stream_handle(dev))
-    CB.raise_on_error("gather_scp", rc)
-    CB.count_launch("gather_scp")
+    CB.launch("gather_scp", _GATHER_ARGTYPES, dev, int(dtype == torch.float64), CB.ptr(a),
+              CB.ptr(idx), CB.ptr(x), CB.ptr(o), n, stream_blocks(dev, n))
     return o
 
 

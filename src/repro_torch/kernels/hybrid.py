@@ -1,9 +1,9 @@
 """Hybrid DIA + SELL entries: compositions of the two formats' entries.
 
-The ``cuda`` SpMV runs the DIA kernel, then the SELL kernel with the DIA
-output as its ``add_to``: the same sum, bit for bit, as the reference's
-Pallas hybrid, which adds its DIA and SELL kernels' outputs.  On the card
-the two launch in one C call from a launch record (``plan_launch``).  There
+The ``cuda`` SpMV runs the DIA kernel, then the SELL kernel adding its rows
+into the DIA output: the same sum, bit for bit, as the reference's Pallas
+hybrid, which adds its DIA and SELL kernels' outputs.  The two launch in
+one C call from a launch record (``plan_launch``).  There
 is no ``cuda`` SpMM, as the reference has no Pallas hybrid SpMM (the DIA
 part has no multi-vector kernel): the SpMM runs the ``torch`` composition.
 """
@@ -65,13 +65,10 @@ def _build_spmm_loop(m: HybridDIA, ctx) -> CompiledKernel:
                  description="DIA kernel, then the SELL kernel adding its rows into "
                              "the DIA output in place")
 def _build_spmv_cuda(m: HybridDIA, ctx) -> CompiledKernel:
-    if not m.rest.nnz:
-        return KD._build_spmv_cuda(m.dia, ctx)
-    if ctx.device.type == "cuda":
-        parts = (KD.spmv_part(m.dia, ctx), KS.spmv_part(m.rest, ctx))
-        return CompiledKernel(PL.spmv_fn(parts, ctx.device), "cuda")
-    fd = KD._build_spmv_cuda(m.dia, ctx).fn
-    fs = KS._build_spmv_cuda(m.rest, ctx).fn
-    # each real row is written by one thread of the SELL kernel, so the add
-    # runs in its store: no separate add pass, and no third (n,) buffer
-    return CompiledKernel(lambda x: fs(x, add_to=fd(x)), "cuda")
+    """Both kernels in one C call from a launch record (``plan_launch``), or
+    the DIA kernel alone where the rest is empty.  Built on the card only:
+    the entry's probe refuses any other device."""
+    parts = (KD.spmv_part(m.dia, ctx),)
+    if m.rest.nnz:
+        parts += (KS.spmv_part(m.rest, ctx),)
+    return CompiledKernel(PL.spmv_fn(parts, ctx.device), "cuda")

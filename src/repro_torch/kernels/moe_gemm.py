@@ -31,9 +31,6 @@ _CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the two kernels of grouped_gemm.cu (GemmPath); each launch is counted
 #: under NAME and under ``grouped_gemm_<path>``
 PATHS = {"simt": 0, "wgmma": 1}
-#: grouped_gemm.cu's kTensorMapError: a return code at or above it is a
-#: failed cuTensorMapEncodeTiled, the CUresult added
-_TENSOR_MAP_ERROR = 1 << 20
 
 
 def plan_groups(expert_of_token: np.ndarray, n_experts: int, bt: int):
@@ -117,17 +114,9 @@ def grouped_gemm_arrays(tile_expert, X, W, *, bt: int = 128, bf: int | None = No
     if T == 0 or F == 0:
         return Y
     path, bm = gemm_plan(bt, D, F, X.dtype, W.dtype)
-    fn = CB.kernel_function(NAME, _ARGTYPES)
-    with torch.cuda.device(dev):
-        rc = fn(PATHS[path], _CODES[X.dtype], _CODES[W.dtype], _CODES[odt],
-                CB.ptr(tile_expert), CB.ptr(X), CB.ptr(W), CB.ptr(Y), T, D, F, E, bt, bm,
-                CB.stream_handle(dev))
-    if rc >= _TENSOR_MAP_ERROR:
-        raise RuntimeError(f"{NAME}: cuTensorMapEncodeTiled failed with CUresult "
-                           f"{rc - _TENSOR_MAP_ERROR}")
-    CB.raise_on_error(NAME, rc)
-    CB.count_launch(NAME)
-    CB.count_launch(f"{NAME}_{path}")
+    CB.launch(NAME, _ARGTYPES, dev, PATHS[path], _CODES[X.dtype], _CODES[W.dtype],
+              _CODES[odt], CB.ptr(tile_expert), CB.ptr(X), CB.ptr(W), CB.ptr(Y), T, D, F, E,
+              bt, bm, counts=(NAME, f"{NAME}_{path}"))
     return Y
 
 

@@ -15,10 +15,11 @@ contiguous (no copy where it already is), allocates y and makes one ctypes
 call (``plan_spmv``).  That call launches kernel 2 on the unpadded x, then
 kernel 1 adding its rows into y, or the one part there is: the kernels,
 order and sums of ``dia_spmv_arrays`` on a padded x followed by
-``sell_spmv_arrays`` with ``add_to``, so y is theirs bit for bit.  Each
-launch counts under its kernel's name (``cuda_build.launch_counts``).  The
-call is one ``kernel.check`` span and one ``kernel.launch`` span, which
-counts once a kernel launched (``utils.spans``).
+``sell_spmv_arrays`` with ``add_to``, so y is theirs bit for bit.  The
+call goes through ``cuda_build.launch``, as every kernel's does, and counts
+a launch under each kernel's name (``cuda_build.launch_counts``): it is one
+``kernel.check`` span and one ``kernel.launch`` span, which counts once a
+kernel launched (``utils.spans``).
 """
 from __future__ import annotations
 
@@ -139,21 +140,8 @@ class LaunchRecord:
 
     def launch(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.empty(self.n_rows, dtype=self.acc, device=self.device)
-        index = self.device.index
-        # the current stream's handle, the capturing one under graph capture:
-        # ``torch.cuda.current_stream().cuda_stream`` without the Stream
-        # object (5.2 against 0.13 us a call on an H100's host)
-        stream = torch._C._cuda_getCurrentRawStream(index)
-        fn = CB.kernel_function(ENTRY, _ARGTYPES)
-        with span("kernel.launch", n=len(self.kernels)):
-            if torch.cuda.current_device() == index:
-                rc = fn(self._addr, x.data_ptr(), y.data_ptr(), stream)
-            else:
-                with torch.cuda.device(index):
-                    rc = fn(self._addr, x.data_ptr(), y.data_ptr(), stream)
-        CB.raise_on_error(ENTRY, rc)
-        for name in self.kernels:
-            CB.count_launch(name)
+        CB.launch(ENTRY, _ARGTYPES, self.device, self._addr, x.data_ptr(), y.data_ptr(),
+                  counts=self.kernels)
         return y
 
 

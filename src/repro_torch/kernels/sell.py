@@ -213,14 +213,6 @@ def _check_indices(m: SELL) -> None:
         raise ValueError("SELL perm is not a permutation of the rows")
 
 
-def _build_cuda(m: SELL, ctx, kernel, **kw) -> CompiledKernel:
-    _check_indices(m)
-    cp, cw, col, val, scale, perm = _operands(m, ctx)
-    n, C = m.shape[0], m.C
-    return CompiledKernel(lambda x, **call_kw: kernel(cp, cw, col, val, scale, perm, x, n, C,
-                                                      **kw, **call_kw), "cuda")
-
-
 def spmv_part(m: SELL, ctx) -> PL.SellPart:
     """Kernel 1's operands of ``m`` on ``ctx.device`` and its cached
     ``ChunkBlocks``, for a launch record."""
@@ -233,21 +225,24 @@ def spmv_part(m: SELL, ctx) -> PL.SellPart:
                              "summed from shared memory; fused scale + inverse "
                              "permutation (+ add_to)")
 def _build_spmv_cuda(m: SELL, ctx) -> CompiledKernel:
-    """The kernel on the container's cached ``ChunkBlocks``: on the card from
-    a launch record (``plan_launch``; the blocks go to the card when it is
-    built, at plan compile), on the host ``sell_spmv_arrays``' plain
-    version, whose function also takes ``add_to``."""
-    if ctx.device.type == "cuda":
-        return CompiledKernel(PL.spmv_fn((spmv_part(m, ctx),), ctx.device), "cuda")
-    return _build_cuda(m, ctx, KP.sell_spmv_arrays, chunk_blocks=sell_chunk_blocks(m))
+    """The kernel on the container's cached ``ChunkBlocks`` from a launch
+    record (``plan_launch``; the blocks go to the card when it is built, at
+    plan compile).  Built on the card only: the entry's probe refuses any
+    other device."""
+    return CompiledKernel(PL.spmv_fn((spmv_part(m, ctx),), ctx.device), "cuda")
 
 
 @register_kernel("sell", "spmm", "cuda",
                  description="chunks in original-row order, K tiles along the grid, "
                              "columns a thread; fused scale + inverse permutation")
 def _build_spmm_cuda(m: SELL, ctx) -> CompiledKernel:
-    # the K tiling is chosen per call from X's width (sell_spmm_launch)
+    """``sell_spmm_arrays`` on the container's chunk schedule, which goes to
+    the card here, at plan compile, not on the first SpMM; the K tiling is
+    chosen per call from X's width (``sell_spmm_launch``).  Built on the card
+    only: the entry's probe refuses any other device."""
+    _check_indices(m)
+    ops = _operands(m, ctx)
+    n, C = m.shape[0], m.C
     sched = sell_chunk_schedule(m)
-    if ctx.device.type == "cuda":
-        sched.on(ctx.device)  # to the card at plan compile, not on the first SpMM
-    return _build_cuda(m, ctx, KP.sell_spmm_arrays, schedule=sched)
+    sched.on(ctx.device)
+    return CompiledKernel(lambda X: KP.sell_spmm_arrays(*ops, X, n, C, schedule=sched), "cuda")

@@ -24,10 +24,11 @@ Where each span sits and the benchmark metric that reads it:
   the fault point (``plan_check_us``);
 * ``kernel.check`` -- a CUDA wrapper's operand checks before its launch
   (``plan_check_us``);
-* ``kernel.launch`` -- ``cuda_build.launch``: entry point, device, stream,
-  the ctypes call, its error code and the launch count; a launch record's
-  one C call for a ``dia``, ``sell`` or ``hybrid`` SpMV on the card
-  (``kernels.plan_launch``), counted once a kernel (``launch_host_us``);
+* ``kernel.launch`` -- ``cuda_build.launch``, through which every kernel
+  launches: entry point, device, stream, the ctypes call, its error code
+  and the launch counts, counted once a name it counts (a launch record's
+  C call for a ``dia``, ``sell`` or ``hybrid`` SpMV on the card counts once
+  a kernel it launches) (``launch_host_us``);
 * ``lanczos.step`` / ``lanczos.sync`` -- one Lanczos iteration of the
   eager loop, or on the card one replayed CUDA graph of ``K`` steps, and
   its read of the alphas and betas on the host (``lanczos_enqueue_ms``,

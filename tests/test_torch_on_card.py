@@ -661,6 +661,83 @@ def test_cuda_hybrid_plan_call_spans_on_the_card(cuda_device):
     assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-12
 
 
+# --- every kernel family through ``cuda_build.launch`` ---------------------------
+
+#: the launch counter each family's call raises by one: kernels 1-9, mf_product
+_FAMILIES = ("sell_spmv", "dia_spmv", "csr_spmv", "mf_spmv", "sell_spmm", "bell_spmm",
+             "grouped_gemm", "stream_triad", "gather_scp", "mf_product")
+
+
+def _one_call(family: str, dev):
+    """A call that launches ``family``'s kernel once, its operands and plan
+    built on ``dev`` beforehand."""
+    from repro_torch.core import matrices as PM
+    from repro_torch.kernels import gather_bench as GB
+    from repro_torch.kernels import moe_gemm as KM
+    rng = np.random.default_rng(12)
+
+    def plan_of(m, fmt):
+        plan = SpMVPlan.compile(m, PlanConfig(device=dev, format=fmt))
+        assert plan.report.kernel == "cuda"
+        x = torch.from_numpy(rng.standard_normal(m.shape[1])).to(dev)
+        return lambda: plan(x)
+
+    if family == "sell_spmv":
+        return plan_of(PF.convert(port_matrix("surrogate3000"), "sell"), "sell")
+    if family == "dia_spmv":
+        return plan_of(PF.DIA.from_csr(port_matrix("laplace48")), "dia")
+    if family == "csr_spmv":
+        return plan_of(port_matrix("surrogate3000"), "csr")
+    if family == "mf_spmv":
+        return plan_of(PF.detect_matrix_free(port_matrix("exact4")), "matrix_free")
+    if family == "mf_product":
+        return plan_of(PM.holstein_hubbard_operator(PM.HolsteinHubbardParams(
+            L=4, n_up=2, n_dn=2, max_phonon=3, max_total_phonon=3)), "mf_product")
+    if family == "sell_spmm":
+        m = PF.convert(port_matrix("surrogate3000"), "sell")
+        plan = SpMVPlan.compile(m, PlanConfig(device=dev, format="sell"))
+        assert plan.report.spmm_kernel == "cuda"
+        X = torch.from_numpy(rng.standard_normal((m.shape[1], 16))).to(dev)
+        return lambda: plan.spmm(X)
+    if family == "bell_spmm":
+        d = PM.block_sparse_dense(256, 512, (8, 128), 0.3, seed=2)
+        return plan_of(PF.convert(PF.CSR.from_dense(d), "bsr"), "bsr")
+    if family == "grouped_gemm":
+        X, W, eot = _grouped_case(dev, 128, 4, 256, 256, torch.bfloat16, torch.bfloat16, 13)
+        return lambda: KM.grouped_gemm(X, eot, W, bt=128)
+    a, b, c = (torch.from_numpy(rng.standard_normal(4097)).to(dev) for _ in range(3))
+    if family == "stream_triad":
+        return lambda: GB.stream_triad(a, b, c)
+    idx = torch.from_numpy(rng.integers(0, 4097, 4097, dtype=np.int32)).to(dev)
+    return lambda: GB.gather_scp(a, idx, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", _FAMILIES)
+def test_kernel_launch_span_counts_the_launches_on_the_card(cuda_device, family):
+    """Every kernel launches through ``cuda_build.launch``: under the
+    profiler one call is one ``kernel.launch`` range, whose count is the
+    rise of the launch counters (the kernel's, and the path's where it has
+    one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.utils import spans
+    call = _one_call(family, cuda_device)
+    call()                                 # the libraries built and loaded
+    torch.cuda.synchronize()
+    spans.reset()
+    before = CB.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call()
+        torch.cuda.synchronize()
+    rise = {k: v - before[k] for k, v in CB.launch_counts().items() if v != before[k]}
+    tot = spans.totals()
+    spans.reset()
+    assert rise[family] == 1 and set(rise) <= {family, *CB.PATH_COUNTERS}
+    assert tot["kernel.launch"]["n"] == sum(rise.values())
+    assert [e.name for e in prof.events()].count("kernel.launch") == 1
+
+
 # --- kernel 8, the STREAM triad: tiles and tails --------------------------------
 
 

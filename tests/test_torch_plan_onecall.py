@@ -2,14 +2,16 @@
 card in one C call (``kernels.plan_launch``): the launch records their
 entries build, and the plan call through them.
 
-On the host: the path a CPU plan takes, the fault point and the operand
-checks of the plan call, the parts the entries hand to a record, the checks
-a record runs when it is built, the record a call picks for its x (a
-stand-in launch), and the record's C struct against ``csrc/plan_launch.cu``.
-On the card (``cuda``-marked, skipped without one): y against the padded
-path of ``dia_spmv_arrays`` and ``sell_spmv_arrays`` bit for bit, eager and
-under graph capture, the casts of other x and the launch counts.  The file
-needs no JAX:
+On the host: the entries' refusal off the card, the fault point and the
+operand checks of the plan call, the parts the entries hand to a record,
+the checks a record runs when it is built, the record a call picks for its
+x (a stand-in launch), and the record's C struct against
+``csrc/plan_launch.cu``.  On the card (``cuda``-marked, skipped without
+one): y against the padded path of ``dia_spmv_arrays`` and
+``sell_spmv_arrays`` bit for bit, eager and under graph capture (beside
+the generated operators' kernels, which launch through the same
+``cuda_build.launch``), the casts of other x and the launch counts.  The
+file needs no JAX:
 
     python -m pytest --noconftest tests/test_torch_plan_onecall.py
 """
@@ -72,16 +74,17 @@ def _parts(fmt: str, m, device=CPU):
 
 
 @pytest.mark.parametrize("fmt", ("dia", "sell", "hybrid"))
-def test_cuda_entries_on_the_host_run_the_plain_padded_path(fmt):
+def test_cuda_spmv_entries_refuse_the_host(fmt):
+    """The entries build on the card only: the registry refuses them on the
+    host, and a plan that asks for them runs the ``torch`` entry."""
     m = _matrix(fmt)
-    build = {"dia": KD._build_spmv_cuda, "sell": KS._build_spmv_cuda,
-             "hybrid": KH._build_spmv_cuda}[fmt]
-    ck = build(m, R.KernelContext(device=CPU))
+    ctx = R.KernelContext(device=CPU)
+    with pytest.raises(R.BackendUnavailable, match="CUDA device"):
+        R.build(m, fmt, "spmv", "cuda", ctx)
+    plan = SpMVPlan.compile(m, PlanConfig(backend="cuda", device="cpu"))
     x = _x(m.shape[1])
-    want = R.build(m, fmt, "spmv", "torch", R.KernelContext(device=CPU)).fn(x)
-    got = ck.fn(x)
-    assert ck.label == "cuda" and got.dtype == want.dtype
-    assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+    assert plan.report.format == fmt and plan.report.kernel == "torch"
+    assert torch.equal(plan(x), R.build(m, fmt, "spmv", "torch", ctx).fn(x))
 
 
 @pytest.mark.parametrize("fmt", ("dia", "sell", "hybrid", "csr"))
@@ -256,7 +259,9 @@ def _padded_path(fmt: str, m, dev):
             pad0, n))
     if fmt in ("sell", "hybrid"):
         s = m.rest if fmt == "hybrid" else m
-        fs = KS._build_cuda(s, ctx, KSS.sell_spmv_arrays, chunk_blocks=KS.sell_chunk_blocks(s)).fn
+        ops, blocks = KS._operands(s, ctx), KS.sell_chunk_blocks(s)
+        fs = (lambda x, add_to=None: KSS.sell_spmv_arrays(
+            *ops, x, s.shape[0], s.C, chunk_blocks=blocks, add_to=add_to))
     if fd is None:
         return fs
     return fd if fs is None else (lambda x: fs(x, add_to=fd(x)))
@@ -311,10 +316,29 @@ def test_two_launches_a_hybrid_call_on_the_card(cuda_device):
     assert sum(CB.launch_counts().values()) - before == 10
 
 
+def _generated(fmt: str):
+    """matrix_free: the exact L = 4 Holstein-Hubbard operator (kernel 4);
+    mf_product: its electron x phonon form at half filling (``mf_product``)."""
+    from repro_torch.core import matrices as M
+    if fmt == "matrix_free":
+        return PF.detect_matrix_free(port_matrix("exact4"))
+    return M.holstein_hubbard_operator(M.HolsteinHubbardParams(
+        L=4, n_up=2, n_dn=2, max_phonon=3, max_total_phonon=3))
+
+
 @pytest.mark.cuda
-def test_hybrid_record_replays_from_a_cuda_graph_on_the_card(cuda_device):
-    plan, m = _card_plan("hybrid", "f32", cuda_device)
-    padded = _padded_path("hybrid", m, cuda_device)
+@pytest.mark.parametrize("fmt", ("hybrid", "matrix_free", "mf_product"))
+def test_hybrid_record_replays_from_a_cuda_graph_on_the_card(cuda_device, fmt):
+    """A plan call captured into a CUDA graph replays the eager call bit for
+    bit: the hybrid's launch record, and kernel 4 and ``mf_product``, whose
+    wrappers launch through the same ``cuda_build.launch``."""
+    if fmt == "hybrid":
+        plan, m = _card_plan(fmt, "f32", cuda_device)
+        ref = _padded_path(fmt, m, cuda_device)
+    else:
+        plan = ref = SpMVPlan.compile(_generated(fmt), PlanConfig(device=cuda_device,
+                                                                  format=fmt))
+        assert plan.report.kernel == "cuda"
     n = plan.report.shape[1]
     x1, x2 = (_x(n, torch.float64, cuda_device, seed=s) for s in (6, 7))
     static_x = x1.clone()
@@ -328,7 +352,7 @@ def test_hybrid_record_replays_from_a_cuda_graph_on_the_card(cuda_device):
         g.replay()
         eager = plan(x)
         torch.cuda.synchronize()
-        assert torch.equal(static_y, eager) and torch.equal(eager, padded(x))
+        assert torch.equal(static_y, eager) and torch.equal(eager, ref(x))
 
 
 @pytest.mark.cuda

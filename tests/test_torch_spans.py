@@ -398,28 +398,97 @@ class _FakeCudaDevice:
         return False
 
 
-@pytest.mark.parametrize("profiled", (False, True), ids=("off", "profiled"))
-def test_launch_calls_the_entry_point_then_counts_it(monkeypatch, profiled):
+def _fake_card(monkeypatch, current: int) -> list:
+    """Stand-ins for the C entry points (each returns its first argument as
+    its return code), the raw stream of device i (90 + i) and the current
+    device; returns the lookups and calls in order."""
     calls = []
 
     def fake_function(name, argtypes):
         calls.append(("lookup", name, tuple(argtypes)))
-        return lambda *a: calls.append(("call",) + a) or (7 if a[0] == "bad" else 0)
+        return lambda *a: calls.append(("call",) + a) or a[0]
 
     _FakeCudaDevice.entered = []
     monkeypatch.setattr(CB, "kernel_function", fake_function)
-    monkeypatch.setattr(CB, "stream_handle", lambda dev: 99)
-    monkeypatch.setattr(CB.torch.cuda, "device", _FakeCudaDevice)
-    dev = torch.device("cpu")
-    before = CB.launch_counts()["dia_spmv"]
-    with _profiled() if profiled else contextlib.nullcontext():
-        CB.launch("dia_spmv", [1, 2], dev, "a", 3)
-        with pytest.raises(RuntimeError, match="cudaError 7"):
-            CB.launch("dia_spmv", [1, 2], dev, "bad", 4)
-    assert calls == [("lookup", "dia_spmv", (1, 2)), ("call", "a", 3, 99),
-                     ("lookup", "dia_spmv", (1, 2)), ("call", "bad", 4, 99)]
-    assert _FakeCudaDevice.entered == [dev, dev]
-    # a failed launch raises before it is counted
-    assert CB.launch_counts()["dia_spmv"] == before + 1
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 90 + index,
+                        raising=False)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "device", _FakeCudaDevice)
+    return calls
+
+
+def _rise(before: dict) -> dict:
+    after = CB.launch_counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.parametrize("profiled", (False, True), ids=("off", "profiled"))
+def test_launch_calls_the_entry_point_then_counts_it(monkeypatch, profiled):
+    calls = _fake_card(monkeypatch, current=1)
+    dev = torch.device("cuda", 1)
+    before = CB.launch_counts()
+    with _profiled() if profiled else contextlib.nullcontext() as prof:
+        CB.launch("dia_spmv", [1, 2], dev, 0, 3)
+        CB.launch("grouped_gemm", [1], dev, 0,
+                  counts=("grouped_gemm", "grouped_gemm_wgmma"))
+        with pytest.raises(RuntimeError, match="dia_spmv: CUDA launch failed with cudaError 7"):
+            CB.launch("dia_spmv", [1, 2], dev, 7, 4)
+    # the current stream of the device goes last; the device is current
+    assert calls == [("lookup", "dia_spmv", (1, 2)), ("call", 0, 3, 91),
+                     ("lookup", "grouped_gemm", (1,)), ("call", 0, 91),
+                     ("lookup", "dia_spmv", (1, 2)), ("call", 7, 4, 91)]
+    assert _FakeCudaDevice.entered == []
+    # a failed launch raises before it is counted; two names count one each
+    assert _rise(before) == {"dia_spmv": 1, "grouped_gemm": 1, "grouped_gemm_wgmma": 1}
     tot = spans.totals()
-    assert tot == {} if not profiled else tot["kernel.launch"]["n"] == 2
+    if not profiled:
+        assert tot == {}
+    else:
+        # one range a launch, which counts once a name: 1 + 2 + 1
+        assert tot["kernel.launch"]["n"] == 4 and len(_events(prof, "kernel.launch")) == 3
+
+
+@pytest.mark.parametrize("current", (0, 1), ids=("current", "other"))
+def test_launch_enters_the_device_only_when_it_is_not_current(monkeypatch, current):
+    calls = _fake_card(monkeypatch, current=current)
+    CB.launch("csr_spmv", [], torch.device("cuda", 0), 0)
+    assert calls[-1] == ("call", 0, 90)
+    assert _FakeCudaDevice.entered == ([] if current == 0 else [0])
+
+
+@pytest.mark.parametrize("rc,message", [
+    (1 << 20, "grouped_gemm: cuTensorMapEncodeTiled failed with CUresult 0$"),
+    ((1 << 20) + 1, "grouped_gemm: cuTensorMapEncodeTiled failed with CUresult 1$"),
+    ((1 << 20) + 999, "grouped_gemm: cuTensorMapEncodeTiled failed with CUresult 999$"),
+    ((1 << 20) - 1, "grouped_gemm: CUDA launch failed with cudaError 1048575 "),
+    (1, "grouped_gemm: CUDA launch failed with cudaError 1 ")], ids=str)
+def test_tensor_map_error_is_named(monkeypatch, rc, message):
+    """``grouped_gemm.cu`` returns ``kTensorMapError`` + the ``CUresult``
+    where ``cuTensorMapEncodeTiled`` fails: ``raise_on_error`` names it, for
+    every entry point, and the launch is not counted."""
+    src = CB.source_path("grouped_gemm").read_text()
+    assert f"constexpr int kTensorMapError = 1 << {CB.TENSOR_MAP_ERROR.bit_length() - 1};" in src
+    _fake_card(monkeypatch, current=0)
+    before = CB.launch_counts()
+    with pytest.raises(RuntimeError, match=message):
+        CB.launch("grouped_gemm", [], torch.device("cuda", 0), rc,
+                  counts=("grouped_gemm", "grouped_gemm_wgmma"))
+    with pytest.raises(RuntimeError, match=message):
+        CB.raise_on_error("grouped_gemm", rc)
+    assert _rise(before) == {}
+    CB.raise_on_error("grouped_gemm", 0)
+
+
+@pytest.mark.parametrize("module", ("csr_spmv", "dia_spmv", "sell_spmv", "matrix_free",
+                                    "mf_product", "plan_launch", "gather_bench", "moe_gemm",
+                                    "bsr_spmm"))
+def test_only_cuda_build_looks_up_entry_points_and_streams(module):
+    """Every module that launches a kernel launches through
+    ``cuda_build.launch``: none looks up an entry point, a stream or the
+    device, checks a return code or counts a launch itself."""
+    src = (ROOT / "src" / "repro_torch" / "kernels" / f"{module}.py").read_text()
+    assert "CB.launch(" in src
+    for own in ("kernel_function", "_cuda_getCurrentRawStream", "current_stream",
+                "cuda_stream", "torch.cuda.device(", "current_device", "raise_on_error",
+                "count_launch", "ctypes.CDLL"):
+        assert own not in src, f"{module} uses {own}"
