@@ -315,6 +315,14 @@ def nbytes(*ts) -> int:
     return int(sum(t.numel() * t.element_size() for t in ts if t is not None))
 
 
+def kernel_launches(counts: dict) -> int:
+    """Launches of every kernel in ``cuda_build.launch_counts()``'s copy,
+    each once: a launch that also counts its path (``PATH_COUNTERS``) adds
+    one."""
+    from repro_torch.kernels import cuda_build as CB
+    return sum(v for k, v in counts.items() if k not in CB.PATH_COUNTERS)
+
+
 def csr_tensor(torch, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
                shape, device):
     """A row-sorted COO triple as a torch sparse CSR tensor (f64 values)."""
@@ -472,7 +480,7 @@ def mf_product_phase(torch, dev, args, record, compare, ex6, xe6) -> dict:
     CB.reset_launch_counts()
     res = lanczos(plan, n, m=args.lanczos_steps, v0=v0, reorthogonalize=False)
     counts = CB.launch_counts()
-    check(counts.get("mf_product", 0) == res.n_spmv and sum(counts.values()) == res.n_spmv,
+    check(counts.get("mf_product", 0) == res.n_spmv and kernel_launches(counts) == res.n_spmv,
           f"HMeP path: {counts} launches for {res.n_spmv} SpMVs (only mf_product, once each)")
     res_c = lanczos(plan_c, n, m=args.lanczos_steps, v0=v0, reorthogonalize=False)
     e0, e0c = float(res.eigenvalues[0]), float(res_c.eigenvalues[0])
@@ -1869,43 +1877,56 @@ def main(argv=None) -> int:
 
     def mf_case(op, x, what, timed=None, lib_csr=None):
         """Kernel 4 on its MfLaunch against the plain version on the padded x,
-        two calls bit-equal; ``timed`` names a shape whose kernel, plain,
-        cuSPARSE and plan-call times are kept."""
+        on the lanes as the plan reads them (their codes where they code)
+        and streamed, the two bit-equal, two calls bit-equal; ``timed``
+        names a shape whose kernel (both forms), plain, cuSPARSE and
+        plan-call times are kept."""
         launch = matrix_free.mf_launch(op)
         data, tab = on(matrix_free.mf_data(op)), launch.on(dev)
+        lanes = matrix_free.mf_encode(data, launch) or data
+        coded = lanes is not data
         p0, p1 = launch.pads
         acc = torch.float64 if torch.float64 in (x.dtype, data.dtype) else torch.float32
         xp = dia_spmv.pad_x(x, p0, p1, acc)
         nn = op.shape[0]
-        k = lambda: matrix_free.mf_spmv_arrays(data, launch, x)  # noqa: E731
+        k = lambda: matrix_free.mf_spmv_arrays(lanes, launch, x)  # noqa: E731
+        ks = lambda: matrix_free.mf_spmv_arrays(data, launch, x)  # noqa: E731
         p = lambda: matrix_free.mf_spmv_plain(  # noqa: E731
             data, launch.desc, launch.gen, xp, p0, nn)
         got = k()
         err = compare("mf_spmv", what, got, p())
         check(torch.equal(got, k()), f"mf_spmv {what}: two calls differ (one accumulator a "
                                      "row, a fixed order)")
+        check(torch.equal(got, ks()), f"mf_spmv {what}: codes and streamed lanes differ")
         if timed:
             lib = csr_tensor(torch, F._np(lib_csr.to_coo().rows).astype(np.int64),
                              F._np(lib_csr.col_idx).astype(np.int64),
                              F._np(lib_csr.val), lib_csr.shape, dev)
             xl = x.double()
-            # lanes, descriptor and x read once, y written once
-            nb = nbytes(data, tab, x) + nn * got.element_size()
+            # lanes (or codes and their table), descriptor and x read once, y
+            # written once
+            tail = nbytes(tab, x) + nn * got.element_size()
+            nb = tail + (nbytes(lanes.codes, lanes.values) if coded else nbytes(data))
             b, by = bound_ms(H100, nb, 2 * op.nnz, str(acc).replace("torch.", ""))
+            bs, _ = bound_ms(H100, tail + nbytes(data), 2 * op.nnz,
+                             str(acc).replace("torch.", ""))
             plan_ = SpMVPlan.compile(op, PlanConfig())
             check(plan_.report.kernel == "cuda", f"{what}: plan runs {plan_.report.kernel}")
             mf_timed[timed] = {
-                "ms": time_ms(torch, k), "plain_ms": time_ms(torch, p),
+                "ms": time_ms(torch, k), "coded": coded, "streamed_ms": time_ms(torch, ks),
+                "streamed_bound_ms": bs, "plain_ms": time_ms(torch, p),
                 "library_ms": time_ms(torch, lambda: lib @ xl),
                 "plan_ms": time_ms(torch, lambda: plan_(x)), "bound_ms": b, "bound_by": by,
                 "bytes": nb, "max_abs_err": err, "rows": nn, "nnz": op.nnz,
                 "stored_lanes": op.n_stored, "generated": op.n_generated,
-                "shape": f"{what}: {nn} rows, {op.nnz} nnz, {op.n_stored} stored lanes, "
-                         f"{op.n_generated} generated diagonals"}
+                "shape": f"{what}: {nn} rows, {op.nnz} nnz, {op.n_stored} stored lanes "
+                         f"({'coded' if coded else 'streamed'}), {op.n_generated} "
+                         "generated diagonals"}
             r = mf_timed[timed]
-            log(f"[mf] {what}: kernel {r['ms']:.4f} ms, plan call {r['plan_ms']:.4f}, plain "
-                f"{r['plain_ms']:.4f}, cuSPARSE f64 {r['library_ms']:.4f}; bound "
-                f"{b:.4f} ms by {by} ({nb / 1e6:.1f} MB)")
+            log(f"[mf] {what}: kernel {r['ms']:.4f} ms ({'codes' if coded else 'lanes'}; "
+                f"lanes streamed {r['streamed_ms']:.4f}, bound {bs:.4f}), plan call "
+                f"{r['plan_ms']:.4f}, plain {r['plain_ms']:.4f}, cuSPARSE f64 "
+                f"{r['library_ms']:.4f}; bound {b:.4f} ms by {by} ({nb / 1e6:.1f} MB)")
             del lib, plan_
 
     xl64 = torch.from_numpy(rng.standard_normal(lap.shape[0])).to(dev)
@@ -2049,7 +2070,7 @@ def main(argv=None) -> int:
     CB.reset_launch_counts()
     res_x, spmv_x, wall_x = timed_lanczos(plan_x, v0x, True)
     counts = CB.launch_counts()
-    check(counts["mf_spmv"] == res_x.n_spmv and sum(counts.values()) == res_x.n_spmv,
+    check(counts["mf_spmv"] == res_x.n_spmv and kernel_launches(counts) == res_x.n_spmv,
           f"{ex6_name} path: {counts} launches for {res_x.n_spmv} SpMVs (only mf_spmv, "
           "once each)")
     record("mf_spmv", launches=counts["mf_spmv"],
@@ -2908,7 +2929,7 @@ def main(argv=None) -> int:
     CB.reset_launch_counts()
     ys, _ = serve_round(srv, "surrogate", xs)
     counts = CB.launch_counts()
-    check(counts["sell_spmm"] == R // width and sum(counts.values()) == R // width,
+    check(counts["sell_spmm"] == R // width and kernel_launches(counts) == R // width,
           f"serving: {R} requests at width {width} launched {counts}, not sell_spmm once "
           "a flush")
     futs_p = srv.submit_many("surrogate", xs_part)
@@ -2916,7 +2937,7 @@ def main(argv=None) -> int:
           "serving: the partial batch flushed early or answered the wrong count")
     ys_p = [f.result() for f in futs_p]
     counts = CB.launch_counts()
-    check(counts["sell_spmm"] == R // width + 1 and sum(counts.values()) == R // width + 1,
+    check(counts["sell_spmm"] == R // width + 1 and kernel_launches(counts) == R // width + 1,
           f"serving: the padded partial flush launched {counts}")
     launches_12a = counts["sell_spmm"]
     err_12a = worst_rel(ys + ys_p, [plan_s(x) for x in xs + xs_part])
@@ -3013,7 +3034,7 @@ def main(argv=None) -> int:
     CB.reset_launch_counts()
     ys1, wall1 = serve_round(solo, "surrogate", xs1)
     counts = CB.launch_counts()
-    check(counts["sell_spmv"] == 64 and sum(counts.values()) == 64,
+    check(counts["sell_spmv"] == 64 and kernel_launches(counts) == 64,
           f"serving width 1: 64 requests launched {counts}, not sell_spmv once each")
     launches_12b_v = counts["sell_spmv"]
     check(all(torch.equal(y, plan_s(x)) for x, y in zip(xs1, ys1)),
@@ -3042,7 +3063,7 @@ def main(argv=None) -> int:
     # kernel 4 runs once a column, so the exact operator's partial flush is
     # not padded: one launch a real request
     check(counts["sell_spmm"] == 1 and counts["mf_spmv"] == len(xs_x)
-          and sum(counts.values()) == 1 + len(xs_x),
+          and kernel_launches(counts) == 1 + len(xs_x),
           f"serving: one pump of both queues launched {counts} (want sell_spmm 1, mf_spmv "
           f"{len(xs_x)}: kernel 4 once a real column)")
     launches_12b_mf = counts["mf_spmv"]
@@ -3327,7 +3348,7 @@ def main(argv=None) -> int:
     res_d = lanczos(m, args.n, m=args.lanczos_steps, mesh=mesh4, v0=v0)
     counts = CB.launch_counts()
     launches_13b = counts["sell_spmv"]
-    check(launches_13b == res_d.n_spmv * nb_l and sum(counts.values()) == launches_13b,
+    check(launches_13b == res_d.n_spmv * nb_l and kernel_launches(counts) == launches_13b,
           f"distributed Lanczos: {counts} for {res_d.n_spmv} SpMVs x {nb_l} slabs")
     res_cl = lanczos(plan_csr, args.n, m=args.lanczos_steps, v0=v0)
     da = float(np.max(np.abs(res_d.alphas - res_cl.alphas) / np.abs(res_cl.alphas)))
@@ -3368,7 +3389,7 @@ def main(argv=None) -> int:
     ys13 = [f.result() for f in srv13.submit_many("surrogate", xs13)]
     counts = CB.launch_counts()
     launches_13c = counts["sell_spmm"]
-    check(launches_13c == nb13 and sum(counts.values()) == nb13,
+    check(launches_13c == nb13 and kernel_launches(counts) == nb13,
           f"distributed serving: one flush launched {counts}, want sell_spmm {nb13}")
     err13 = max(rel_err(torch, y, plan13(x))[1] for x, y in zip(xs13, ys13))
     check(err13 <= TOL["float64"], f"distributed serving: futures vs plan(x) {err13:.3e}")

@@ -18,8 +18,9 @@ looks up an entry point or a stream: it passes the device's current stream,
 enters the device where it is not current, raises on the entry point's
 return code (:func:`raise_on_error`, one convention for every entry point)
 and adds one to the launch counters under each name it is given, so a run
-can show that its main path went through the kernels.  The grouped GEMM and
-the BELL SpMM also count the path that ran (``PATH_COUNTERS``).  All of it
+can show that its main path went through the kernels.  The grouped GEMM,
+the BELL SpMM and the matrix-free SpMV also count the path that ran
+(``PATH_COUNTERS``).  All of it
 is one ``kernel.launch`` span (``utils.spans``).
 """
 from __future__ import annotations
@@ -53,10 +54,11 @@ KERNELS = tuple(k for names in SOURCES.values() for k in names)
 LAUNCHERS = {"plan_spmv": "plan_launch"}
 SOURCE_OF = {k: src for src, names in SOURCES.items() for k in names} | LAUNCHERS
 #: kernels whose entry point runs on several paths (two CUDA kernels, or
-#: one kernel's decode and wide instantiations): a launch counts under the
-#: entry point and under the path that ran
+#: one kernel's instantiations: BELL's decode and wide, kernel 4's lanes
+#: read as codes or streamed): a launch counts under the entry point and
+#: under the path that ran
 PATH_COUNTERS = ("grouped_gemm_wgmma", "grouped_gemm_simt", "bell_spmm_decode",
-                 "bell_spmm_wide")
+                 "bell_spmm_wide", "mf_spmv_coded", "mf_spmv_streamed")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               # separate multiply and add, as the plain PyTorch versions do

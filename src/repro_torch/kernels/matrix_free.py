@@ -11,7 +11,11 @@ reference.
 descriptor only as an ``MfLaunch``: packed and checked on the host once per
 operator (32-bit rows and columns, at most ``MAX_DIAGS`` diagonals, the
 divisor magic of every period, no quantized storage), copied to a card
-once.  The kernel reads x unpadded and masks columns outside the matrix in
+once.  It reads the stored lanes as ``mf_lanes`` leaves them on the card:
+1-byte codes into a table of values (``MfCodes``) where the lanes hold at
+most ``MAX_CODES`` distinct nonzero bit patterns, else the lanes as they
+are; both give the same bits, and ``lane_code_counts()`` says which ran.
+The kernel reads x unpadded and masks columns outside the matrix in
 registers; the plain version and the ``torch`` and ``loop_reference``
 entries read a zero-padded x, as the reference does.  Registry entries:
 ``(matrix_free, {spmv, spmm}, {torch, loop_reference, cuda})``; the
@@ -35,8 +39,9 @@ from .registry import CompiledKernel, KernelContext, register_kernel
 
 NAME = "mf_spmv"
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_void_p]
 
 #: diagonals one launch takes (``kMaxDiags`` in csrc/mf_spmv.cu), the
 #: default cap of ``MatrixFreeOperator.from_csr``
@@ -50,9 +55,22 @@ MF_DIAG = np.dtype([("off", "<i4"), ("lane", "<i4"), ("p", "<u4"), ("lo", "<u4")
                     ("hi", "<u4"), ("magic", "<u4"), ("shift", "<u4"),
                     ("unused", "<u4"), ("gen", "<f8")])
 _LIMIT = 1 << 31  # rows, columns and offsets are 32-bit on the card
+#: distinct nonzero bit patterns coded lanes may hold: code 0 is +0.0
+#: (``kMaxValues`` - 1 in csrc/mf_spmv.cu)
+MAX_CODES = 255
+#: threads a CTA (``kBlock`` in csrc/common.cuh) and rows a thread on coded
+#: lanes (``kCodeRows`` in csrc/mf_spmv.cu): the codes' tile is their product
+BLOCK, CODE_ROWS = 256, 4
+#: the integer of each storage dtype's width, whose values are its bits
+_BITS = {torch.float64: torch.int64, torch.float32: torch.int32,
+         torch.bfloat16: torch.int16, torch.float16: torch.int16}
 
 register_stat("mf_tables")
 register_stat("mf_launch")
+register_stat("mf_lanes")
+#: a kernel-4 launch over stored lanes counts under the entry point and
+#: under the form it read them in
+_PATHS = {True: ("mf_spmv", "mf_spmv_coded"), False: ("mf_spmv", "mf_spmv_streamed")}
 
 
 def _round_gen(gv: float, value_dtype: str) -> float:
@@ -226,17 +244,29 @@ class MfLaunch:
             self._on[key] = torch.from_numpy(self.table.view(np.uint8)).to(device)
         return self._on[key]
 
-    def check(self, data: torch.Tensor, x: torch.Tensor) -> None:
-        """Raise unless ``data`` holds this operator's lanes and ``x`` has
-        its columns."""
-        n, ncols = self.shape
-        if data.dim() != 2 or data.shape[0] != self.n_stored or data.shape[1] < n \
-                or data.dtype != self.storage:
-            raise ValueError(f"mf_spmv: lanes {tuple(data.shape)} {data.dtype} are not "
-                             f"this descriptor's ({self.n_stored}, {n}) {self.storage}")
-        if tuple(x.shape) != (ncols,):
+    def check(self, lanes, x: torch.Tensor) -> None:
+        """Raise unless ``lanes`` holds this operator's lanes (as values, or
+        as the ``MfCodes`` made for this descriptor) and ``x`` has its
+        columns."""
+        self.check_lanes(lanes)
+        if tuple(x.shape) != (self.shape[1],):
             raise ValueError(f"mf_spmv: x has shape {tuple(x.shape)}, the descriptor's "
-                             f"operator has {ncols} columns")
+                             f"operator has {self.shape[1]} columns")
+
+    def check_lanes(self, lanes) -> None:
+        """Raise unless ``lanes`` is this operator's lanes, or codes made
+        for this descriptor and tiled as the kernel reads them."""
+        n = self.shape[0]
+        if isinstance(lanes, MfCodes):
+            if lanes.launch is not self:
+                raise ValueError("mf_spmv: codes made for another operator's descriptor")
+            if lanes.rows != CODE_ROWS:
+                raise ValueError(f"mf_spmv: codes tiled for {lanes.rows} rows a thread, the "
+                                 f"kernel reads {CODE_ROWS}")
+        elif lanes.dim() != 2 or lanes.shape[0] != self.n_stored or lanes.shape[1] < n \
+                or lanes.dtype != self.storage:
+            raise ValueError(f"mf_spmv: lanes {tuple(lanes.shape)} {lanes.dtype} are not "
+                             f"this descriptor's ({self.n_stored}, {n}) {self.storage}")
 
 
 def mf_launch(op: MatrixFreeOperator) -> MfLaunch:
@@ -244,36 +274,122 @@ def mf_launch(op: MatrixFreeOperator) -> MfLaunch:
     return cached(op, "_mf_launch", "mf_launch", lambda: MfLaunch(op))
 
 
-def mf_spmv_arrays(data, launch: MfLaunch, x):
+def tile_codes(codes: torch.Tensor, rows: int = CODE_ROWS) -> torch.Tensor:
+    """(n_stored, n) codes laid out by the coded kernel's tiles of ``BLOCK *
+    rows`` rows, zero padded to whole tiles: in a tile the byte of row
+    ``t + r * BLOCK`` is ``t * rows + r``, so thread t's codes of a lane are
+    one ``rows``-byte word and a warp's words lie back to back."""
+    s, n = codes.shape
+    tile = BLOCK * rows
+    nt = -(-n // tile)
+    out = torch.zeros((s, nt * tile), dtype=torch.uint8, device=codes.device)
+    out[:, :n] = codes
+    return out.view(s, nt, rows, BLOCK).transpose(2, 3).reshape(s, nt * tile)
+
+
+def untile_codes(tiled: torch.Tensor, rows: int = CODE_ROWS) -> torch.Tensor:
+    """``tile_codes``'s inverse, padding kept: (n_stored, whole tiles)."""
+    s, ld = tiled.shape
+    return tiled.view(s, ld // (BLOCK * rows), BLOCK, rows).transpose(2, 3).reshape(s, ld)
+
+
+class MfCodes:
+    """Stored lanes as the coded kernel reads them (``mf_encode``): a table
+    ``values`` of the lanes' distinct bit patterns in the storage dtype,
+    +0.0 first, at most ``MAX_CODES + 1`` entries, and ``codes`` (uint8,
+    ``(n_stored, ld)``), the index into it of each row of each lane, laid
+    out by ``tile_codes``.  Made for one ``MfLaunch``: its ``check`` takes
+    no other's."""
+
+    def __init__(self, launch: MfLaunch, codes: torch.Tensor, values: torch.Tensor,
+                 rows: int = CODE_ROWS):
+        self.launch, self.codes, self.values, self.rows = launch, codes, values, rows
+
+    def lanes(self) -> torch.Tensor:
+        """The (n_stored, n) lanes the codes stand for, bit for bit."""
+        idx = untile_codes(self.codes, self.rows)[:, :self.launch.shape[0]]
+        return self.values[idx.long()]
+
+
+def mf_encode(data: torch.Tensor, launch: MfLaunch, rows: int = CODE_ROWS):
+    """``data``'s stored lanes as ``MfCodes`` on their device, or None where
+    there is no lane or the lanes hold more than ``MAX_CODES`` distinct
+    nonzero bit patterns.  Bits are compared, not values: -0.0, each NaN
+    payload and each narrow storage value keep a code of their own."""
+    launch.check_lanes(data)
+    if launch.n_stored == 0:
+        return None
+    bits = data[:, :launch.shape[0]].view(_BITS[data.dtype])
+    patterns, inverse = torch.unique(bits, return_inverse=True)
+    nonzero = patterns != 0
+    if int(nonzero.sum()) > MAX_CODES:
+        return None
+    code_of = torch.cumsum(nonzero, 0) * nonzero   # +0.0 -> 0, the rest 1, 2, ... in order
+    values = torch.cat([patterns.new_zeros(1), patterns[nonzero]]).view(data.dtype)
+    return MfCodes(launch, tile_codes(code_of[inverse].to(torch.uint8), rows), values, rows)
+
+
+def mf_lanes(op: MatrixFreeOperator, device):
+    """The operator's stored lanes as kernel 4 reads them on ``device``,
+    built once per container and device: copied there, then coded there
+    (``mf_encode``), so that where codes engage only the codes and the
+    value table stay on the device; else the lanes themselves."""
+    on = cached(op, "_mf_lanes", "mf_lanes", dict)
+    key = str(torch.device(device))
+    if key not in on:
+        data = mf_data(op).to(device)
+        on[key] = mf_encode(data, mf_launch(op)) or data
+    return on[key]
+
+
+def lane_code_counts() -> dict:
+    """Kernel-4 launches over stored lanes since the launch counters were
+    last reset, by the form the lanes were read in: ``{"coded": ...,
+    "streamed": ...}`` (``cuda_build.launch_counts()``, where a replayed
+    CUDA graph adds the launches its capture counted)."""
+    c = CB.launch_counts()
+    return {"coded": c["mf_spmv_coded"], "streamed": c["mf_spmv_streamed"]}
+
+
+def mf_spmv_arrays(lanes, launch: MfLaunch, x):
     """Matrix-free SpMV of the operator ``launch`` describes, whose stored
-    lanes are ``data`` (``mf_data``): the CUDA kernel for a CUDA ``x``
-    (unpadded, cast only when its dtype is not the accumulator's), the plain
-    version on the zero-padded x for a CPU one."""
+    lanes are ``lanes``: the lanes (``mf_data``) or their ``MfCodes``.  The
+    CUDA kernel for a CUDA ``x`` (unpadded, cast only when its dtype is not
+    the accumulator's), the plain version on the zero-padded x for a CPU
+    one."""
     if not isinstance(launch, MfLaunch):
         raise TypeError(f"mf_spmv: the descriptor must be an MfLaunch (mf_launch(op)), "
                         f"got {type(launch).__name__}")
-    launch.check(data, x)
-    acc = acc_dtype(data.dtype, x.dtype)
+    launch.check(lanes, x)
+    coded = isinstance(lanes, MfCodes)
+    acc = acc_dtype(launch.storage, x.dtype)
     if x.device.type == "cpu":
         pad0, pad1 = launch.pads
-        return mf_spmv_plain(data, launch.desc, launch.gen, pad_x(x, pad0, pad1, acc),
-                             pad0, launch.shape[0])
+        return mf_spmv_plain(lanes.lanes() if coded else lanes, launch.desc, launch.gen,
+                             pad_x(x, pad0, pad1, acc), pad0, launch.shape[0])
     if x.device.type != "cuda":
         raise ValueError(f"mf_spmv: no kernel for device {x.device}")
     dev = x.device
     with span("kernel.check"):
-        if data.device != dev or not data.is_contiguous():
-            raise ValueError(f"mf_spmv: lanes on {data.device} (contiguous: "
-                             f"{data.is_contiguous()}), x on {dev}")
+        held = (lanes.codes, lanes.values) if coded else (lanes,)
+        if any(t.device != dev or not t.is_contiguous() for t in held):
+            raise ValueError(f"mf_spmv: lanes on {held[0].device} (contiguous: "
+                             f"{all(t.is_contiguous() for t in held)}), x on {dev}")
         if x.dtype != acc:
             x = x.to(acc)
         if not x.is_contiguous():
             x = x.contiguous()
+    if coded:
+        form = (CB.value_code(lanes.values, "values"), None, lanes.codes.shape[1],
+                CB.ptr(lanes.codes), CB.ptr(lanes.values), lanes.values.numel())
+    else:
+        form = (CB.value_code(lanes, "data"), CB.ptr(lanes), lanes.shape[1], None, None, 0)
+    vcode, data, ld, codes, values, nv = form
     n, ncols = launch.shape
     y = torch.empty(n, dtype=acc, device=dev)
-    CB.launch(NAME, _ARGTYPES, dev, CB.value_code(data, "data"), int(acc == torch.float64),
-              CB.ptr(data), data.shape[1], CB.ptr(launch.on(dev)), launch.n_diags, CB.ptr(x),
-              ncols, CB.ptr(y), n)
+    CB.launch(NAME, _ARGTYPES, dev, vcode, int(acc == torch.float64), data, ld, codes, values,
+              nv, CB.ptr(launch.on(dev)), launch.n_diags, CB.ptr(x), ncols, CB.ptr(y), n,
+              counts=_PATHS[coded] if launch.n_stored else None)
     return y
 
 
@@ -327,12 +443,12 @@ def _plain_executor(op: MatrixFreeOperator, ctx: KernelContext):
 
 
 def _cuda_executor(op: MatrixFreeOperator, ctx: KernelContext):
-    """x -> the kernel: lanes and descriptor on the card from plan compile
-    on, x passed as it is."""
+    """x -> the kernel: lanes (``mf_lanes``) and descriptor on the card
+    from plan compile on, x passed as it is."""
     launch = mf_launch(op)
-    data = mf_data(op).to(ctx.device)
+    lanes = mf_lanes(op, ctx.device)
     launch.on(ctx.device)
-    return lambda x: mf_spmv_arrays(data, launch, x)
+    return lambda x: mf_spmv_arrays(lanes, launch, x)
 
 
 @register_kernel("matrix_free", "spmv", "torch",

@@ -8,13 +8,21 @@ On the two shapes ``chip_smoke.py`` times kernel 4 at -- ``laplacian_2d(1100,
 operator at L = 6, ``max_phonon=5`` (13 stored lanes, 8 generated
 diagonals; f64 lanes and f32 lanes, f64 x) -- it times the kernel
 (``csrc/mf_spmv.cu``) beside copies of it with one suspect changed, each
-built with the kernels' own ``nvcc`` flags into ``build/ablation/``:
+built with the kernels' own ``nvcc`` flags into ``build/ablation/``.  On
+the exact operator each runs on the lanes streamed as they are stored and
+on their 1-byte codes (``matrix_free.mf_encode``; the kernel on codes must
+give the kernel on lanes bit for bit):
 
 * ``masks_off``: no periodic mask (wrong results on purpose);
 * ``rem64``: the phase ``row % p`` as a 64-bit remainder;
 * ``desc_global``: the descriptor read from device memory at every
   diagonal instead of from shared memory;
-* ``rows_<r>``: r rows a thread instead of the kernel's own count;
+* ``rows_<r>``: r rows a thread on streamed lanes instead of ``kRows``;
+* ``code_rows_<r>``: r rows a thread on codes instead of ``kCodeRows``,
+  the codes tiled for r (a word of r bytes a thread a lane);
+* ``code_rows_consecutive``: a thread's rows consecutive instead of
+  ``kBlock`` apart, the codes in row order (the same word, but a warp's x
+  loads of a diagonal ``kCodeRows`` elements apart);
 * ``min_blocks_8``: launch bounds that ask for 8 CTAs an SM (32 registers);
 * ``x_padded``: x zero-padded by a copy at every call (``dia_spmv.pad_x``)
   and read without the column mask, as the first design's executor did;
@@ -25,8 +33,19 @@ memory, a 64-bit remainder, a padded x; kept here as a source) alone on an
 x padded once, and with the pad copy at every call.  Every variant but
 ``masks_off`` is checked against the plain version (1e-12: an f64
 accumulator).  Times are CUDA events, best of 5 repeats of 20 calls, the
-whole set timed twice in opposite orders.  Prints the card, a line a
-variant, and a JSON object last.
+whole set timed twice in opposite orders; each bound counts what the form
+reads once (lanes or codes and their table, x, y) at 3.35 TB/s.  Prints the
+card, a line a variant and form, and a JSON object last.
+
+On codes the kernel takes 4 rows a thread, ``kBlock`` apart (``kCodeRows``):
+on an NVIDIA H100 80GB HBM3 at 700 W, exact L = 6 with f64 lanes, it took
+0.0335 ms against 0.0637, 0.0442 and 0.0381 for 1, 2 and 8 rows, and
+0.0454 with a thread's 4 rows consecutive (its codes' word the same, a
+warp's x loads of a diagonal 32 bytes apart).  One byte a thread a lane
+is slowest, as narrow loads were in ``mf_product``; 8 rows make 821 CTAs
+of 2048 rows where 4 make 1641 (why 8 is slower is not measured: no
+counters on that machine).  The streamed lanes keep 2 rows (0.0770 against
+0.0826, 0.0829 and 0.0768 for 1, 4 and 8: 8 within noise of 2).
 """
 from __future__ import annotations
 
@@ -100,6 +119,8 @@ _FIRST_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
 
 _ROWS = re.compile(r"constexpr int kRows = (\d+);")
+_CODE_ROWS = re.compile(r"constexpr int kCodeRows = (\d+);")
+_ROW_MAP = "row[r] = base + r * kBlock;"
 _MASK = "if (d.p != 0) {"
 _PHASE = """  const uint32_t q = __umulhi(row << 1, d.magic) >> d.shift;
   return row - q * d.p;"""
@@ -125,28 +146,46 @@ __device__ __forceinline__ float ld_x_last(const float* p) {
 }
 """
 _BOUNDS = "__launch_bounds__(kBlock)"
+#: the forms of the stored lanes a variant is timed on: the lanes as they
+#: are, codes tiled by ``tile_codes`` for the variant's rows a thread, and
+#: codes in row order (a thread's rows consecutive)
+LANES, CODES, CODES_IN_ROW_ORDER = "lanes", "codes", "codes_in_row_order"
 
 
 def _variants(kernel_src: str) -> list:
-    """(name, source, [(text, replacement)], checked, x padded) per variant."""
-    m = _ROWS.search(kernel_src)
-    if m is None:
-        raise RuntimeError("mf_ablation: the kernel source no longer sets kRows")
+    """(name, source, [(text, replacement)], checked, x padded, forms, code
+    rows) per variant."""
+    m, mc = _ROWS.search(kernel_src), _CODE_ROWS.search(kernel_src)
+    if m is None or mc is None:
+        raise RuntimeError("mf_ablation: the kernel source no longer sets kRows and kCodeRows")
+    code_rows = int(mc.group(1))
+    both = (LANES, CODES)
     rows = [("rows_%d" % r, kernel_src, [(m.group(0), f"constexpr int kRows = {r};")],
-             True, False) for r in (1, 2, 4, 8) if r != int(m.group(1))]
+             True, False, (LANES,), code_rows) for r in (1, 2, 4, 8) if r != int(m.group(1))]
+    crows = [("code_rows_%d" % r, kernel_src, [(mc.group(0), f"constexpr int kCodeRows = {r};")],
+              True, False, (CODES,), r) for r in (1, 2, 4, 8) if r != code_rows]
     return [
-        ("kernel", kernel_src, [], True, False),
-        ("masks_off", kernel_src, [(_MASK, "if (false) {")], False, False),
+        ("kernel", kernel_src, [], True, False, both, code_rows),
+        ("masks_off", kernel_src, [(_MASK, "if (false) {")], False, False, both, code_rows),
         ("rem64", kernel_src, [(_PHASE, "  return (uint32_t)((int64_t)row % (int64_t)d.p);")],
-         True, False),
-        ("desc_global", kernel_src, [(_DESC, "const MfDiag* dd = desc;")], True, False),
+         True, False, both, code_rows),
+        ("desc_global", kernel_src, [(_DESC, "const MfDiag* dd = desc;")], True, False, both,
+         code_rows),
         *rows,
-        ("min_blocks_8", kernel_src, [(_BOUNDS, "__launch_bounds__(kBlock, 8)")], True, False),
-        ("x_padded", kernel_src, [(_GUARD, "const bool inb = true;")], True, True),
+        *crows,
+        # a thread's rows consecutive: its codes' word is theirs in row order,
+        # but a warp's x loads of a diagonal lie code_rows elements apart
+        ("code_rows_consecutive", kernel_src, [(_ROW_MAP, "row[r] = word + r;")], True, False,
+         (CODES_IN_ROW_ORDER,), code_rows),
+        ("min_blocks_8", kernel_src, [(_BOUNDS, "__launch_bounds__(kBlock, 8)")], True, False,
+         both, code_rows),
+        ("x_padded", kernel_src, [(_GUARD, "const bool inb = true;")], True, True, both,
+         code_rows),
         ("x_evict_last", kernel_src, [(_INCLUDE, _INCLUDE + _EVICT_LAST),
-                                      (_X_LOAD, "ld_x_last(x + c)")], True, False),
-        ("first_design", FIRST_DESIGN, [], True, False),
-        ("first_design_with_pad", FIRST_DESIGN, [], True, True),
+                                      (_X_LOAD, "ld_x_last(x + c)")], True, False, both,
+         code_rows),
+        ("first_design", FIRST_DESIGN, [], True, False, (LANES,), code_rows),
+        ("first_design_with_pad", FIRST_DESIGN, [], True, True, (LANES,), code_rows),
     ]
 
 
@@ -158,6 +197,25 @@ def _shapes(args) -> dict:
             f"exact L={args.L} max_phonon={args.max_phonon} f64 lanes": ex,
             f"exact L={args.L} max_phonon={args.max_phonon} f32 lanes": F.with_value_dtype(
                 ex, "f32")}
+
+
+def _forms(op, data, launch, variants) -> dict:
+    """{(form, code rows): (the entry point's (lanes, ld, codes, values, nv),
+    the bytes the form reads, the tensors behind its pointers)} of every
+    form the variants read; none coded where the lanes do not code."""
+    out = {(LANES, 0): ((CB.ptr(data), data.shape[1], None, None, 0),
+                        data.numel() * data.element_size(), (data,))}
+    for *_, forms, r in variants:
+        for form in set(forms) - {LANES}:
+            codes = None if (form, r) in out else MF.mf_encode(data, launch, rows=r)
+            if codes is None:
+                continue
+            c = codes.codes if form == CODES else MF.untile_codes(codes.codes, r).contiguous()
+            v = codes.values
+            out[(form, r)] = ((None, c.shape[1], CB.ptr(c), CB.ptr(v), v.numel()),
+                              launch.n_stored * op.shape[0] + v.numel() * v.element_size(),
+                              (c, v))
+    return out
 
 
 def main(argv=None) -> int:
@@ -182,6 +240,7 @@ def main(argv=None) -> int:
         n, ncols = op.shape
         launch = MF.mf_launch(op)
         data = MF.mf_data(op).to(dev)
+        forms = _forms(op, data, launch, variants)
         desc_d, gen_d = launch.desc.to(dev), launch.gen.to(dev)
         pad0, pad1 = launch.pads
         x = torch.from_numpy(np.random.default_rng(0).standard_normal(ncols)).to(dev)
@@ -189,8 +248,8 @@ def main(argv=None) -> int:
         want = MF.mf_spmv_plain(data, launch.desc, launch.gen, xp, pad0, n)
         y = torch.empty(n, dtype=torch.float64, device=dev)
         vcode, tab = CB.value_code(data, "data"), launch.on(dev)
-        calls = {}
-        for name, _, _, _, padded in variants:
+        calls, nbytes = {}, {}
+        for name, _, _, _, padded, vforms, r in variants:
             lib = libs[f"mf_{name}"]
             if name.startswith("first_design"):
                 f = lib.mf_first
@@ -201,45 +260,57 @@ def main(argv=None) -> int:
                     return f(vcode, CB.ptr(data), data.shape[1], CB.ptr(desc_d),
                              CB.ptr(gen_d), launch.n_diags, CB.ptr(xq), xq.shape[0], pad0,
                              CB.ptr(y), n, stream)
-            else:
-                f = lib.mf_spmv
-                f.argtypes, f.restype = MF._ARGTYPES, ctypes.c_int
+                calls[(name, LANES)], nbytes[(name, LANES)] = call, forms[(LANES, 0)][1]
+                continue
+            f = lib.mf_spmv
+            f.argtypes, f.restype = MF._ARGTYPES, ctypes.c_int
+            for form in vforms:
+                key = (form, 0 if form == LANES else r)
+                if key not in forms:
+                    continue
+                form_args, nb, _ = forms[key]
 
-                def call(f=f, padded=padded):
+                def call(f=f, padded=padded, form_args=form_args):
                     # a padded x is passed from its first real column on
                     xq = pad_x(x, pad0, pad1, torch.float64) if padded else x
-                    return f(vcode, 1, CB.ptr(data), data.shape[1], CB.ptr(tab),
-                             launch.n_diags, CB.ptr(xq) + 8 * pad0 * padded, ncols,
-                             CB.ptr(y), n, stream)
-            calls[name] = call
-        rel = {}
-        for name, _, _, checked, _ in variants:
+                    return f(vcode, 1, *form_args, CB.ptr(tab), launch.n_diags,
+                             CB.ptr(xq) + 8 * pad0 * padded, ncols, CB.ptr(y), n, stream)
+                calls[(name, form)], nbytes[(name, form)] = call, nb
+        rel, ys = {}, {}
+        for (name, form), call in calls.items():
             y.fill_(float("nan"))
-            CB.raise_on_error(name, calls[name]())
+            CB.raise_on_error(name, call())
             torch.cuda.synchronize()
-            rel[name] = float((y - want).abs().max() / want.abs().max())
-            if checked and not rel[name] <= 1e-12:
-                raise AssertionError(f"mf_ablation {shape}: {name} disagrees with the "
-                                     f"plain version (rel err {rel[name]:.3e})")
+            if name == "kernel":
+                ys[form] = y.clone()
+            rel[(name, form)] = float((y - want).abs().max() / want.abs().max())
+            checked = next(v[3] for v in variants if v[0] == name)
+            if checked and not rel[(name, form)] <= 1e-12:
+                raise AssertionError(f"mf_ablation {shape}: {name} on {form} disagrees with "
+                                     f"the plain version (rel err {rel[(name, form)]:.3e})")
+        if CODES in ys and not torch.equal(ys[CODES], ys[LANES]):
+            raise AssertionError(f"mf_ablation {shape}: the kernel on codes and on lanes "
+                                 "differ in bits")
         order = list(calls)
         ms = {k: [] for k in order}
         for rnd in (order, order[::-1]):
-            for name in rnd:
-                ms[name].append(timer.measure(calls[name], iters=20) * 1e3)
-        nbytes = (data.numel() * data.element_size() + ncols * 8 + n * 8)
-        bound = nbytes / H100.hbm_bytes_per_s * 1e3
+            for key in rnd:
+                ms[key].append(timer.measure(calls[key], iters=20) * 1e3)
         res = {"rows": n, "stored_lanes": launch.n_stored, "diagonals": launch.n_diags,
-               "masked": int((launch.table["p"] != 0).sum()), "bytes": nbytes,
-               "bound_ms": bound,
-               "variants": {k: {"ms": min(v), "ms_rounds": v, "rel_err": rel[k],
-                                "share_of_bound": bound / min(v)} for k, v in ms.items()}}
-        out["shapes"][shape] = res
+               "masked": int((launch.table["p"] != 0).sum()), "variants": {}}
         print(f"[{shape}] {n} rows, {launch.n_stored} stored lanes, {launch.n_diags} "
-              f"diagonals ({res['masked']} masked); byte bound {bound:.4f} ms at 3.35 TB/s")
-        for k, v in res["variants"].items():
-            print(f"  {k:22s} {v['ms']:.4f} ms ({100 * v['share_of_bound']:.1f} % of the "
-                  f"byte bound); rel err vs plain {v['rel_err']:.2e}")
-        del data, x, xp, want, y, desc_d, gen_d
+              f"diagonals ({res['masked']} masked)")
+        for (name, form), v in ms.items():
+            nb = nbytes[(name, form)] + ncols * 8 + n * 8
+            bound = nb / H100.hbm_bytes_per_s * 1e3
+            res["variants"][f"{name}/{form}"] = {
+                "ms": min(v), "ms_rounds": v, "rel_err": rel[(name, form)], "bytes": nb,
+                "bound_ms": bound, "share_of_bound": bound / min(v)}
+            print(f"  {name + '/' + form:40s} {min(v):.4f} ms; bound {bound:.4f} ms "
+                  f"({nb / 1e6:.1f} MB, {100 * bound / min(v):.1f} %); rel err vs plain "
+                  f"{rel[(name, form)]:.2e}")
+        out["shapes"][shape] = res
+        del data, x, xp, want, y, desc_d, gen_d, forms, ys
     print(json.dumps(out))
     return 0
 

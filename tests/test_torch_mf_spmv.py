@@ -16,6 +16,7 @@ relative with an f64 accumulator, 1e-5 with f32.
 """
 import dataclasses
 import re
+from pathlib import Path
 
 import pytest
 
@@ -78,23 +79,38 @@ def ref_op(name: str, vd: str = "f64"):
     return op if vd == "f64" else RF.with_value_dtype(op, vd)
 
 
-def kernel_geometry() -> tuple[int, int]:
-    """(threads a CTA, rows a thread) as the kernel's sources set them."""
-    rows = re.search(r"constexpr int kRows = (\d+);", CB.source_path("mf_spmv").read_text())
+def kernel_geometry() -> tuple[int, int, int]:
+    """(threads a CTA, rows a thread on streamed lanes, rows a thread on
+    coded lanes) as the kernel's sources set them."""
+    src = CB.source_path("mf_spmv").read_text()
+    rows = re.search(r"constexpr int kRows = (\d+);", src)
+    code_rows = re.search(r"constexpr int kCodeRows = (\d+);", src)
     block = re.search(r"constexpr int kBlock = (\d+);", (CB.CSRC / "common.cuh").read_text())
-    return int(block.group(1)), int(rows.group(1))
+    return int(block.group(1)), int(rows.group(1)), int(code_rows.group(1))
 
 
-def emulate_mf_spmv(launch: MF.MfLaunch, data: torch.Tensor, x: torch.Tensor) -> np.ndarray:
-    """The walk of ``csrc/mf_spmv.cu`` in numpy."""
-    block, R = kernel_geometry()
+def emulate_mf_spmv(launch: MF.MfLaunch, lanes, x: torch.Tensor) -> np.ndarray:
+    """The walk of ``csrc/mf_spmv.cu`` in numpy, on the lanes as values
+    (``kRows`` rows a thread) or as ``MfCodes`` (``kCodeRows`` rows a
+    thread, each lane's codes of a thread one word of its tile, a value
+    read from the widened table)."""
+    block, rows_streamed, rows_coded = kernel_geometry()
+    coded = isinstance(lanes, MF.MfCodes)
+    R = rows_coded if coded else rows_streamed
     n, ncols = launch.shape
-    wide = torch.float64 if torch.float64 in (data.dtype, x.dtype) else torch.float32
+    wide = torch.float64 if torch.float64 in (launch.storage, x.dtype) else torch.float32
     adt = np.float64 if wide == torch.float64 else np.float32
-    lanes, xa = data.to(wide).numpy(), x.to(wide).numpy()   # widening is exact
+    xa = x.to(wide).numpy()   # widening is exact
+    if coded:
+        table, codes = lanes.values.to(wide).numpy(), lanes.codes.numpy()
+    else:
+        vals = lanes.to(wide).numpy()
     n_cta = -(-n // (block * R))
+    thread = (np.arange(n_cta, dtype=np.uint64)[:, None] * block
+              + np.arange(block, dtype=np.uint64)[None, :]).ravel()
     base = (np.arange(n_cta, dtype=np.uint64)[:, None] * (block * R)
             + np.arange(block, dtype=np.uint64)[None, :]).ravel()
+    word = (thread * R).astype(np.int64)
     rows = [base + r * block for r in range(R)]
     live = [rw < n for rw in rows]
     accs = [np.zeros(base.shape, adt) for _ in range(R)]
@@ -107,8 +123,11 @@ def emulate_mf_spmv(launch: MF.MfLaunch, data: torch.Tensor, x: torch.Tensor) ->
             xv = np.zeros(base.shape, adt)
             xv[ok] = xa[c[ok].astype(np.int64)]
             if d["lane"] >= 0:
-                v = np.zeros(base.shape, adt)
-                v[live[r]] = lanes[d["lane"], rows[r][live[r]].astype(np.int64)]
+                if coded:   # byte r of the thread's word; padded rows read code 0
+                    v = table[codes[d["lane"], word + r]]
+                else:
+                    v = np.zeros(base.shape, adt)
+                    v[live[r]] = vals[d["lane"], rows[r][live[r]].astype(np.int64)]
                 accs[r] = accs[r] + v * xv
                 continue
             contrib = adt(d["gen"]) * xv
@@ -299,7 +318,178 @@ def test_ablation_edits_apply_to_the_kernel_source():
     assert names[:4] == ["kernel", "masks_off", "rem64", "desc_global"]
     assert {"x_padded", "x_evict_last", "first_design", "first_design_with_pad"} <= set(names)
     assert len([n for n in names if n.startswith("rows_")]) == 3
-    for name, src, edits, checked, _ in variants:
+    assert {f"code_rows_{r}" for r in (1, 2, 8)} <= set(names)
+    assert "code_rows_consecutive" in names
+    for name, src, edits, checked, _, forms, rows in variants:
         assert checked == (name != "masks_off")
+        if name.startswith(("rows_", "first_design")):
+            assert forms == (MA.LANES,), name
+        elif name == "code_rows_consecutive":
+            assert forms == (MA.CODES_IN_ROW_ORDER,) and rows == kernel_geometry()[2]
+        elif name.startswith("code_rows_"):
+            assert forms == (MA.CODES,) and rows == int(name[len("code_rows_"):])
+        else:
+            assert forms == (MA.LANES, MA.CODES) and rows == kernel_geometry()[2], name
         for old, new in edits:
             assert src.count(old) == 1 and old != new, name
+
+
+# --- the lanes as 1-byte codes ---------------------------------------------------
+
+
+def test_code_constants_agree_with_the_kernel_source():
+    src = CB.source_path("mf_spmv").read_text()
+    block, _, code_rows = kernel_geometry()
+    assert (MF.BLOCK, MF.CODE_ROWS) == (block, code_rows)
+    assert f"constexpr int kMaxValues = {MF.MAX_CODES + 1};" in src
+
+
+_SPECIAL = {"negzero": (-0.0, 0.0, 1.5), "zeros": (0.0,), "infs": (float("inf"), -float("inf"),
+                                                                  2.0)}
+
+
+def _stored(lanes: torch.Tensor):
+    """A square operator whose diagonals 0 .. s - 1 are all stored, its
+    lanes exactly ``lanes`` (s, n)."""
+    s, n = lanes.shape
+    vd = next(k for k, v in PF.VALUE_DTYPES.items() if v == lanes.dtype)
+    return PF.MatrixFreeOperator(
+        data=lanes, shape=(n, n), offsets=tuple(range(s)), periods=(1,) * s, los=(0,) * s,
+        his=(1,) * s, gen_values=(None,) * s, nnz=s * n, stored_nnz=s * n, value_dtype=vd)
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return t.contiguous().view(MF._BITS[t.dtype]).numpy()
+
+
+def _lanes_case(case: str, vd: str) -> torch.Tensor:
+    """Three lanes of 1000 rows in storage ``vd``: a few dozen values, half
+    the rows +0.0, and in lane 1 the case's values (-0.0 beside +0.0; a
+    lane of +0.0 alone; infinities), or two NaNs of other payloads."""
+    rng = np.random.default_rng(4)
+    dt = PF.VALUE_DTYPES[vd]
+    pool = rng.standard_normal(30) * 4
+    v = np.where(rng.random((3, 1000)) < 0.5, 0.0, rng.choice(pool, (3, 1000)))
+    if case in _SPECIAL:
+        v[1] = rng.choice(np.asarray(_SPECIAL[case]), 1000)
+    lanes = torch.from_numpy(v).to(dt)
+    if case == "nan_payloads":
+        nan = torch.tensor([float("nan")], dtype=dt).view(MF._BITS[dt])
+        lanes.view(MF._BITS[dt])[1, ::7] = nan | 1
+        lanes.view(MF._BITS[dt])[1, 3::7] = nan | 2
+    return lanes
+
+
+@pytest.mark.parametrize("vd", MF.KERNEL_VALUE_DTYPES)
+@pytest.mark.parametrize("case", ("exact4", "negzero", "zeros", "infs", "nan_payloads"))
+def test_encoding_round_trips_every_lane_bit(case, vd):
+    if case == "exact4":
+        op = to_port(ref_op("exact4", vd))
+        data = MF.mf_data(op)
+    else:
+        data = _lanes_case(case, vd)
+        op = _stored(data)
+    launch = MF.mf_launch(op)
+    codes = MF.mf_encode(data, launch)
+    n = op.shape[0]
+    assert isinstance(codes, MF.MfCodes) and codes.launch is launch
+    assert codes.codes.dtype == torch.uint8 and codes.values.dtype == data.dtype
+    tile = MF.BLOCK * MF.CODE_ROWS
+    assert codes.codes.shape == (op.n_stored, -(-n // tile) * tile)
+    want = _bits(data[:, :n])
+    assert np.array_equal(_bits(codes.lanes()), want)
+    table = _bits(codes.values)
+    assert table[0] == 0 and len(set(table.tolist())) == table.size <= MF.MAX_CODES + 1
+    assert set(table[1:].tolist()) == set(want[want != 0].tolist())
+    natural = MF.untile_codes(codes.codes)
+    assert not natural[:, n:].any(), "padded rows read code 0"
+    assert torch.equal(MF.tile_codes(natural[:, :n]), codes.codes)
+    if case == "zeros":
+        assert not natural[1].any()
+
+
+@pytest.mark.parametrize("distinct,coded", ((255, True), (256, False)))
+def test_lanes_of_more_than_255_values_stay_streamed(distinct, coded):
+    v = np.zeros((2, 600))
+    v[0, :distinct] = np.arange(1, distinct + 1) * 0.5
+    v[1, ::3] = 0.5                              # among lane 0's values
+    data = torch.from_numpy(v)
+    op = _stored(data)
+    codes = MF.mf_encode(data, MF.mf_launch(op))
+    assert (codes is not None) == coded
+    lanes = MF.mf_lanes(op, "cpu")
+    assert MF.mf_lanes(op, "cpu") is lanes     # built once per container and device
+    if coded:
+        assert isinstance(lanes, MF.MfCodes) and lanes.values.numel() == distinct + 1
+    else:
+        assert isinstance(lanes, torch.Tensor) and torch.equal(lanes, data)
+    x = torch.from_numpy(operand(600, seed=8, dtype=np.float64))
+    assert torch.equal(MF.mf_spmv_arrays(lanes, MF.mf_launch(op), x),
+                       MF.mf_spmv_arrays(data, MF.mf_launch(op), x))
+
+
+def test_lanes_without_a_stored_diagonal_do_not_code():
+    op = _generated(500, 500, (-3, 0, 2))
+    assert MF.mf_encode(MF.mf_data(op), MF.mf_launch(op)) is None
+    assert torch.equal(MF.mf_lanes(op, "cpu"), MF.mf_data(op))
+
+
+def test_launch_refuses_codes_of_another_operator():
+    op, other = to_port(ref_op("exact4")), to_port(ref_op("exact4", "f32"))
+    launch = MF.mf_launch(op)
+    x = torch.from_numpy(operand(op.shape[1], seed=2, dtype=np.float64))
+    mine = MF.mf_encode(MF.mf_data(op), launch)
+    launch.check(mine, x)
+    theirs = MF.mf_encode(MF.mf_data(other), MF.mf_launch(other))
+    with pytest.raises(ValueError, match="another operator"):
+        launch.check(theirs, x)
+    with pytest.raises(ValueError, match="another operator"):
+        MF.mf_spmv_arrays(theirs, launch, x)
+    twin = to_port(ref_op("exact4"))            # equal values, another container
+    assert twin is not op
+    with pytest.raises(ValueError, match="another operator"):
+        MF.mf_spmv_arrays(MF.mf_encode(MF.mf_data(twin), MF.mf_launch(twin)), launch, x)
+    wide = MF.mf_encode(MF.mf_data(op), launch, rows=8)
+    with pytest.raises(ValueError, match="tiled for 8 rows"):
+        MF.mf_spmv_arrays(wide, launch, x)
+
+
+@pytest.mark.parametrize("vd,xdt", VX, ids=VX_IDS)
+@pytest.mark.parametrize("name", ("exact3", "exact4", "exact6"))
+def test_coded_walk_equals_streamed_walk_bitwise(name, vd, xdt):
+    op = to_port(ref_op(name, vd))
+    launch, data = MF.mf_launch(op), MF.mf_data(op)
+    codes = MF.mf_encode(data, launch)
+    assert codes is not None, "the Holstein-Hubbard lanes hold few values"
+    x = torch.from_numpy(operand(op.shape[1], seed=41, dtype=np.float64)).to(
+        torch.float64 if xdt == np.float64 else torch.float32)
+    x[5] = float("inf")                         # a non-finite x propagates on both walks
+    streamed, coded = emulate_mf_spmv(launch, data, x), emulate_mf_spmv(launch, codes, x)
+    assert coded.dtype == streamed.dtype
+    assert np.array_equal(coded.view(f"u{coded.itemsize}"), streamed.view(f"u{coded.itemsize}"))
+    assert np.array_equal(_bits(MF.mf_spmv_arrays(codes, launch, x)),
+                          _bits(MF.mf_spmv_arrays(data, launch, x)))
+
+
+def test_lane_code_counts_follow_the_launch_counters():
+    """Kernel 4 counts a launch over stored lanes under its form
+    (``cuda_build.PATH_COUNTERS``); a replayed CUDA graph adds the launches
+    its capture counted through ``add_launch_counts``, and the benchmark's
+    ``mf_coded_pct`` reads the share."""
+    import importlib.util
+    import types
+    assert {"mf_spmv_coded", "mf_spmv_streamed"} <= set(CB.PATH_COUNTERS)
+    before = MF.lane_code_counts()
+    CB.add_launch_counts({"mf_spmv": 4, "mf_spmv_coded": 3, "mf_spmv_streamed": 1})
+    try:
+        after = MF.lane_code_counts()
+        assert (after["coded"] - before["coded"], after["streamed"] - before["streamed"]) == (3, 1)
+        path = Path(__file__).resolve().parents[1] / "spmvbench" / "metrics" / "mf_coded_pct.py"
+        spec = importlib.util.spec_from_file_location("mf_coded_pct", path)
+        reader = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(reader)
+        ctx = types.SimpleNamespace(traced={}, trace={}, result={}, bench=None, setup_s=1.0)
+        c = MF.lane_code_counts()
+        assert reader.read(ctx) == pytest.approx(100.0 * c["coded"] / (c["coded"] + c["streamed"]))
+    finally:
+        CB.add_launch_counts({"mf_spmv": -4, "mf_spmv_coded": -3, "mf_spmv_streamed": -1})

@@ -779,17 +779,19 @@ _MF_VX = [("f64", torch.float64), ("f32", torch.float64), ("f32", torch.float32)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("vd,xdt", _MF_VX, ids=str)
-@pytest.mark.parametrize("name", ("laplace48", "exact6"))
-def test_cuda_mf_spmv_matches_plain_on_the_card(cuda_device, name, vd, xdt):
+@pytest.mark.parametrize("name,form", (("laplace48", "lanes"), ("exact6", "lanes"),
+                                       ("exact6", "codes")))
+def test_cuda_mf_spmv_matches_plain_on_the_card(cuda_device, name, form, vd, xdt):
     from repro_torch.kernels import matrix_free as MF
     from repro_torch.kernels.dia_spmv import pad_x
     op = _mf_op(name, vd)
     launch = MF.mf_launch(op)
     data = MF.mf_data(op).to(cuda_device)
+    lanes = MF.mf_encode(data, launch) if form == "codes" else data
     x = torch.from_numpy(np.random.default_rng(5).standard_normal(op.shape[1])).to(
         cuda_device, xdt)
     before = CB.launch_counts()["mf_spmv"]
-    got, again = MF.mf_spmv_arrays(data, launch, x), MF.mf_spmv_arrays(data, launch, x)
+    got, again = MF.mf_spmv_arrays(lanes, launch, x), MF.mf_spmv_arrays(lanes, launch, x)
     acc = got.dtype
     p0, p1 = launch.pads
     want = MF.mf_spmv_plain(data, launch.desc, launch.gen, pad_x(x, p0, p1, acc), p0,
@@ -816,9 +818,11 @@ def test_cuda_mf_plan_matches_torch_entry_and_counts_one_launch(cuda_device, nam
     torch.cuda.synchronize()
     after = CB.launch_counts()
     # one mf_spmv launch a call and no other counted launch (chip_smoke.py's
-    # profiler line shows that no pad copy runs either)
-    assert after["mf_spmv"] == before["mf_spmv"] + 1
-    assert sum(after.values()) == sum(before.values()) + 1
+    # profiler line shows that no pad copy runs either), its lanes as codes
+    # where they have any
+    rise = {k: v - before[k] for k, v in after.items() if v != before[k]}
+    assert rise == ({"mf_spmv": 1} if name == "laplace48" else
+                    {"mf_spmv": 1, "mf_spmv_coded": 1})
     assert torch.equal(got, kern(x))
     assert _rel(got, plain(x)) <= 1e-12
 
@@ -839,6 +843,143 @@ def test_cuda_mf_spmv_refuses_before_any_launch(cuda_device):
     with pytest.raises(ValueError, match="columns"):
         MF.mf_spmv_arrays(data, launch, x[1:])
     assert CB.launch_counts()["mf_spmv"] == before
+
+
+@pytest.fixture(scope="module")
+def hh_exact_l6():
+    """The benchmark's ``hh_exact_l6`` operator (exact Holstein-Hubbard, L = 6,
+    5 phonons a site: 1,679,616 rows, 13 stored lanes of 41 distinct nonzero
+    values)
+    from ``spmvbench/gen.py`` at ``spmvbench/configs/hh_exact_l6.json``."""
+    import json
+    from pathlib import Path
+
+    from spmvbench import gen
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "spmvbench" / "configs" / "hh_exact_l6.json").read_text())
+    row_ptr, col, val = gen.GENERATORS[cfg["generator"]](**cfg["params"], dtype=np.float64)
+    n = len(row_ptr) - 1
+    return PF.MatrixFreeOperator.from_csr(PF.CSR(row_ptr, col, val, (n, n)))
+
+
+def _values_op(distinct: int):
+    """A 70,000-row operator: a stored main diagonal holding ``distinct``
+    values, a stored lane at +1 holding two of them, generated diagonals of
+    0.5 at -3 and +300."""
+    rng = np.random.default_rng(distinct)
+    n = 70_000
+    pool = rng.standard_normal(distinct)
+    rows, cols, vals = [], [], []
+    for off in (-3, 0, 1, 300):
+        r = np.arange(max(0, -off), min(n, n - off))
+        v = {0: pool[rng.permutation(r.size) % distinct], 1: pool[rng.integers(0, 2, r.size)]}
+        rows.append(r)
+        cols.append(r + off)
+        vals.append(v.get(off, np.full(r.size, 0.5)))
+    rows, cols, vals = map(np.concatenate, (rows, cols, vals))
+    order = np.lexsort((cols, rows))
+    rp = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=n), out=rp[1:])
+    op = PF.MatrixFreeOperator.from_csr(PF.CSR(rp, cols[order], vals[order], (n, n)))
+    assert op.n_stored == 2 and op.n_generated == 2
+    return op
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    ints = {8: torch.int64, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("hh_exact_l6-f64", "hh_exact_l6-f32", "values255",
+                                  "values256"))
+def test_cuda_mf_coded_kernel_gives_the_streamed_bits_on_the_card(cuda_device, case, request):
+    """Kernel 4 on 1-byte codes gives kernel 4 on the streamed lanes bit for
+    bit, for an x with infinities and NaNs too, on the benchmark's exact
+    L = 6 operator (f64 and f32 lanes) and on lanes of 255 values; lanes of
+    256 values stay streamed.  Each launch counts under its form."""
+    from repro_torch.kernels import matrix_free as MF
+    if case.startswith("hh_exact_l6"):
+        op = PF.with_value_dtype(request.getfixturevalue("hh_exact_l6"), case.split("-")[1])
+    else:
+        op = _values_op(int(case[len("values"):]))
+    launch = MF.mf_launch(op)
+    data = MF.mf_data(op).to(cuda_device)
+    codes = MF.mf_encode(data, launch)
+    if case == "values256":
+        assert codes is None
+        plan = SpMVPlan.compile(op, PlanConfig(device=cuda_device))
+        x = torch.randn(op.shape[1], dtype=torch.float64, device=cuda_device)
+        before = MF.lane_code_counts()
+        got = plan(x)
+        assert MF.lane_code_counts() == {"coded": before["coded"],
+                                         "streamed": before["streamed"] + 1}
+        assert _same_bits(got, MF.mf_spmv_arrays(data, launch, x))
+        return
+    assert codes is not None and codes.codes.device == cuda_device
+    if case.startswith("hh_exact_l6"):
+        assert codes.values.numel() == 42 and op.n_stored == 13   # +0.0 and 41 values
+    g = torch.Generator(device="cpu").manual_seed(9)
+    x = torch.randn(op.shape[1], generator=g, dtype=torch.float64)
+    x[7], x[1000], x[-2] = float("inf"), -float("inf"), float("nan")
+    for xv in (x.clamp(-5, 5).nan_to_num(0.0), x):
+        xd = xv.to(cuda_device)
+        before = MF.lane_code_counts()
+        coded, streamed = MF.mf_spmv_arrays(codes, launch, xd), MF.mf_spmv_arrays(data, launch, xd)
+        torch.cuda.synchronize()
+        assert MF.lane_code_counts() == {"coded": before["coded"] + 1,
+                                         "streamed": before["streamed"] + 1}
+        assert _same_bits(coded, streamed)
+    assert torch.equal(codes.lanes().view(torch.uint8),
+                       data[:, :op.shape[0]].contiguous().view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_cuda_graph_over_the_coded_launch_replays_its_bits_on_the_card(cuda_device):
+    from repro_torch.kernels import matrix_free as MF
+    op = _mf_op("exact6", "f64")
+    launch = MF.mf_launch(op)
+    data = MF.mf_data(op).to(cuda_device)
+    codes = MF.mf_encode(data, launch)
+    assert codes is not None
+    n = op.shape[1]
+    x1, x2 = (torch.from_numpy(np.random.default_rng(s).standard_normal(n)).to(cuda_device)
+              for s in (11, 12))
+    static_x = x1.clone()
+    MF.mf_spmv_arrays(codes, launch, static_x)          # warm, outside the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        static_y = MF.mf_spmv_arrays(codes, launch, static_x)
+    for x in (x2, x1):
+        static_x.copy_(x)
+        g.replay()
+        eager = MF.mf_spmv_arrays(data, launch, x)
+        torch.cuda.synchronize()
+        assert _same_bits(static_y, eager)
+
+
+@pytest.mark.cuda
+def test_mf_coded_pct_reads_100_for_hh_exact_l6_on_the_card(cuda_device, hh_exact_l6):
+    """The benchmark's ``mf_coded_pct.e0`` over Lanczos solves on the cell's
+    operator, replayed from CUDA graphs: every kernel-4 launch read codes."""
+    import types
+
+    from repro_torch.core.eigensolver import lanczos
+    from spmvbench import run
+    plan = SpMVPlan.compile(hh_exact_l6, PlanConfig(device=cuda_device,
+                                                    format="matrix_free"))
+    assert plan.report.kernel == "cuda"
+    n = hh_exact_l6.shape[0]
+    v0 = torch.randn(n, dtype=torch.float64, device=cuda_device)
+    lanczos(plan, n, m=32, v0=v0)                       # captures the graphs
+    CB.reset_launch_counts()
+    res = lanczos(plan, n, m=32, v0=v0)
+    counts = CB.launch_counts()
+    assert counts["mf_spmv"] == counts["mf_spmv_coded"] == res.n_spmv == 32
+    ctx = types.SimpleNamespace(traced={"solves": 1}, trace={}, result={}, bench=None,
+                                setup_s=1.0)
+    assert run.metric_reader("mf_coded_pct.e0")(ctx) == 100.0
 
 
 # --- slice 8: COO, validation, faults and the tuning DB on the card --------------
