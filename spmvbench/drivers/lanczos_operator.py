@@ -1,8 +1,10 @@
 """Repeated ground-state solves on the operator the program generates from
 the model's parameters: ``holstein_hubbard_operator(HolsteinHubbardParams(
 **params))``, planned as it is (the configuration's ``format``), with no CSR
-of the program's.  The window and the check are ``drivers/lanczos.py``'s:
-the reference runs over the benchmark's own CSR of the same parameters.
+of the program's, so its configuration's generator need hand over none.
+The window and the check are ``drivers/lanczos.py``'s, on the generator's
+reference (``holstein_hubbard``'s: the benchmark's own CSR of the same
+parameters).
 
 Traffic keys: those of ``lanczos``.
 """

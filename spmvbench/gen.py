@@ -15,7 +15,8 @@ values, the layout a CSR built by ``CSR.from_coo`` holds.
   and computes every phonon state of one configuration at once, giving the
   same entries and the same bits.
 
-``tests/test_bench_gen.py`` holds both bitwise against the port's.
+``tests/test_bench_gen.py`` holds both bitwise against the port's; a
+configuration reaches them through its module in ``generators/``.
 """
 from __future__ import annotations
 
@@ -174,5 +175,5 @@ def holstein_hubbard(L: int, n_up: int = 1, n_dn: int = 1, max_phonon: int = 2,
     return _csr_from_sorted_keys(keys, vals[order].astype(dtype), dim)
 
 
-#: generator name in a configuration file -> function
+#: each function by the name of the module in ``generators/`` that calls it
 GENERATORS = {"surrogate": surrogate, "holstein_hubbard": holstein_hubbard}

@@ -3,7 +3,9 @@
     python3 -m spmvbench.run --workload hmep.spmv --seed 7 --seconds 10 --trace 0
 
 Everything a cell needs is found by name: the cell in ``BENCHMARK.json``;
-its configuration in ``spmvbench/configs/<config>.json``; its traffic mix in
+its configuration in ``spmvbench/configs/<config>.json``, whose ``generator``
+names the module in ``spmvbench/generators/`` that makes its matrix and
+plain reference; its traffic mix in
 ``spmvbench/traffic/<traffic>.json``, whose ``driver`` names the general
 driver in ``spmvbench/drivers/``; the limits of its correctness check in
 ``spmvbench/limits/<cell>.json``; and each metric's reader in
@@ -132,7 +134,7 @@ class Bench:
         self.format = traffic.get("format", config["format"])
         self._np = np
         self._torch = torch
-        self.csr = None
+        self.matrix = None
 
     def subseed(self, k: int) -> int:
         """The k-th independent 63-bit seed drawn from the run's seed."""
@@ -149,27 +151,29 @@ class Bench:
         return getattr(self._torch, name)
 
     def build_matrix(self) -> None:
-        from . import gen
-
+        """The configuration's generator's :class:`generators.Matrix`, from
+        its ``params`` (and sub-seed 0 where it is ``seeded``)."""
         params = dict(self.config["params"])
         if self.config.get("seeded"):
             params["seed"] = self.subseed(0)
-        params["dtype"] = self._np.dtype(self.value_dtype).type
-        row_ptr, col, val = gen.GENERATORS[self.config["generator"]](**params)
-        if val.dtype != self._np.dtype(self.value_dtype):
-            raise ValueError(f"generator made {val.dtype}, the configuration states "
+        dtype = self._np.dtype(self.value_dtype)
+        m = load_generator(self.config["generator"]).build(params, dtype.type)
+        if m.csr is not None and m.csr[2].dtype != dtype:
+            raise ValueError(f"generator made {m.csr[2].dtype}, the configuration states "
                              f"{self.value_dtype}")
-        self.csr = (row_ptr, col, val)
-        self.n = len(row_ptr) - 1
-        self.nnz = len(col)
-        rows = self._np.repeat(self._np.arange(self.n), self._np.diff(row_ptr))
-        self.n_diag = int(self._np.count_nonzero(rows == col))
+        self.matrix = m
+        self.n, self.nnz, self.n_diag = m.n, m.nnz, m.n_diag
 
     def program_matrix(self):
         """The program's CSR, from copies of the benchmark's arrays."""
         from repro_torch.core.formats import CSR
 
-        row_ptr, col, val = self.csr
+        if self.matrix.csr is None:
+            raise ValueError(
+                f"the generator {self.config['generator']!r} of this configuration hands "
+                f"over no CSR: its cell's driver builds the program's operator from the "
+                f"configuration's params (as drivers/lanczos_operator.py does)")
+        row_ptr, col, val = self.matrix.csr
         return CSR(row_ptr.copy(), col.copy(), val.copy(), (self.n, self.n))
 
     def plan_config(self):
@@ -178,9 +182,7 @@ class Bench:
         return PlanConfig(format=self.format, device=self.device)
 
     def reference(self):
-        from .reference import CsrRef
-
-        return CsrRef(*self.csr, self.device)
+        return self.matrix.reference(self.device)
 
     def pool(self, k: int, count: int, dtype: str):
         """``count`` seeded vectors of length n on the device, drawn there."""
@@ -199,6 +201,16 @@ class Bench:
 
     def compute_dtype(self) -> str:
         return "float64" if "float64" in (self.value_dtype, self.vector_dtype) else "float32"
+
+
+def load_generator(name: str):
+    """``generators/<name>.py``, the module whose ``build(params, dtype)``
+    makes a configuration's matrix."""
+    path = HERE / "generators" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no generator {name!r}: spmvbench/generators/{name}.py "
+                                f"does not exist")
+    return importlib.import_module(f"spmvbench.generators.{name}")
 
 
 def load_driver(traffic: dict):

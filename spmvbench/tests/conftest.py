@@ -1,5 +1,6 @@
 """Shared set-up of the benchmark's tests: the repository's root and its
-``src`` on the path, tiny configurations of every cell, and the card
+``src`` on the path, every cell at the tiny size its files give (the
+configuration's ``tiny`` block, the traffic's ``tiny`` keys), and the card
 fixture of the tests that need one."""
 from __future__ import annotations
 
@@ -21,30 +22,21 @@ from spmvbench import run  # noqa: E402
 # and the served cell's tiny open loop runs on the real clock
 torch.set_num_threads(2)
 
-#: the configurations at sizes a test run holds on the host
-TINY_PARAMS = {
-    "hmep": {"n": 3000, "nnz_per_row": 14.0, "n_secondary_diags": 12, "frac_in_diags": 0.6,
-             "band_frac": 0.02},
-    "hh_exact_l6": {"L": 4, "n_up": 1, "n_dn": 1, "max_phonon": 2, "max_total_phonon": None,
-                    "t": 1.0, "U": 4.0, "g": 0.5, "omega0": 1.0, "periodic": True},
-}
 #: every cell of BENCHMARK.json
 CELLS = [c["name"] for c in run.load_json(run.ROOT / "BENCHMARK.json")["workloads"]]
 
 
 def tiny(cell: str, check_all: bool = False) -> dict:
-    """The files of ``cell`` with the configuration cut to a host size and
-    the traffic to match; ``check_all`` checks 64 answers, most or all of a
-    tiny run's, where a run checks its sample."""
+    """The files of ``cell`` cut to a host size: the configuration's
+    ``params`` replaced by its ``tiny`` block's, the traffic updated by its
+    ``tiny`` keys; ``check_all`` checks 64 answers, most or all of a tiny
+    run's, where a run checks its sample."""
     bench = run.load_json(run.ROOT / "BENCHMARK.json")
     entry = {c["name"]: c for c in bench["workloads"]}[cell]
     config = run.load_json(run.HERE / "configs" / f"{entry['config']}.json")
-    config["params"] = TINY_PARAMS[entry["config"]]
+    config["params"] = config["tiny"]["params"]
     traffic = run.load_json(run.HERE / "traffic" / f"{entry['traffic']}.json")
-    if traffic["driver"] == "served":
-        traffic.update(rate_per_s=300, warmup_s=0.1, pool=8)
-    if traffic["driver"] == "lanczos":
-        traffic.update(pool=4, m=24, warmup=1)
+    traffic.update(traffic["tiny"])
     if check_all:
         traffic["samples"] = 64
     return {"bench": bench, "config": config, "traffic": traffic}

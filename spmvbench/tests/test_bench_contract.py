@@ -1,6 +1,8 @@
-"""BENCHMARK.json is complete: every cell's configuration, traffic mix,
-driver and limits are files found by name, every metric has a reader, and
-the names and units keep to the characters the contract allows."""
+"""BENCHMARK.json is complete: every cell's configuration, generator,
+traffic mix, driver and limits are files found by name, the configuration
+and traffic with the tiny size and the faults the shared tests read; every
+metric has a reader; and the names and units keep to the characters the
+contract allows."""
 from __future__ import annotations
 
 import re
@@ -27,7 +29,10 @@ def test_cell_files(cell):
     traffic = run.load_json(run.HERE / "traffic" / f"{cell['traffic']}.json")
     assert (run.HERE / "drivers" / f"{traffic['driver']}.py").exists()
     assert (run.HERE / "limits" / f"{cell['name']}.json").exists()
-    assert cfg["generator"] in __import__("spmvbench.gen", fromlist=["GENERATORS"]).GENERATORS
+    assert (run.HERE / "generators" / f"{cfg['generator']}.py").is_file()
+    assert set(cfg["tiny"]["params"]) == set(cfg["params"])
+    assert isinstance(traffic["tiny"], dict) and set(traffic["tiny"]) <= set(traffic)
+    assert traffic["faults"]
     assert len(cell["why"]) <= 200 and NAME.match(cell["name"])
     reported = run.metrics_of(BENCH, cell["name"], False)
     assert "setup_s" in {m["name"] for m in reported} and len(reported) >= 2

@@ -1,7 +1,8 @@
 """A run with the timed path broken underneath reads ``correct`` false:
 an answer altered where it is produced, a NaN in every answer, a step that
 returns its state unchanged (the SpMV hands back x), and half of a served
-batch left out.
+batch left out: each cell takes the faults its traffic file's ``faults``
+names.
 The cells run on one chip, so no exchange between chips can be left out.
 Here 64 answers are checked (``check_all``), most of a tiny run's."""
 from __future__ import annotations
@@ -43,15 +44,12 @@ FAULTS = {
     # anyway): half of the requests of every batch of two or more
     "half_batch_left_out": ("spmm", lambda orig: lambda self, X: _halved(orig(self, X))),
 }
-APPLIES = {"closed_spmv": ("answer_altered", "state_unchanged", "nan_output"),
-           "lanczos": ("answer_altered", "state_unchanged", "nan_output"),
-           "served": ("served_answer_altered", "half_batch_left_out", "served_nan_output")}
 
 
 def _cases():
     from conftest import tiny
     for cell in CELLS:
-        for fault in APPLIES[tiny(cell)["traffic"]["driver"]]:
+        for fault in tiny(cell)["traffic"]["faults"]:
             yield pytest.param(cell, fault, id=f"{cell}-{fault}")
 
 

@@ -30,11 +30,14 @@ def test_no_jax_import(path):
 
 
 def test_whole_names_compared(monkeypatch):
+    import repro_torch  # noqa: F401
+
     assert "repro_torch" in sys.modules and "repro" not in run.forbidden_modules()
     monkeypatch.setitem(sys.modules, "repro.core", sys)
     assert run.forbidden_modules() == ["repro"]
 
 
-def test_reference_imports_nothing_of_the_program():
-    for name in ("reference.py", "counts.py", "gen.py"):
-        assert "repro_torch" not in imported_top_levels(HERE / name)
+@pytest.mark.parametrize("name", ["reference.py", "counts.py", "gen.py"]
+                         + sorted(f"generators/{p.name}" for p in HERE.glob("generators/*.py")))
+def test_reference_imports_nothing_of_the_program(name):
+    assert "repro_torch" not in imported_top_levels(HERE / name)
